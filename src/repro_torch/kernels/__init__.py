@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels of the sweep, with their plain PyTorch versions.
+
+* :mod:`repro_torch.kernels.fused` -- gather + h-index + dirty push per
+  bucket (``engine="fused"``), from ``csrc/fused.cu``;
+* :mod:`repro_torch.kernels.hindex` -- h-index over pre-gathered estimates
+  (``engine="kernel"``), from ``csrc/hindex.cu``.
+
+Each wrapper launches its kernel for CUDA tensors and runs the plain
+version for CPU tensors. :mod:`repro_torch.kernels.build` compiles the
+sources with ``nvcc`` at first use.
+"""

@@ -1,0 +1,4 @@
+"""Fused sweep kernel (``csrc/fused.cu``) and its plain PyTorch version."""
+from repro_torch.kernels.fused.ops import fused_sweep_op, fused_sweep_plain
+
+__all__ = ["fused_sweep_op", "fused_sweep_plain"]

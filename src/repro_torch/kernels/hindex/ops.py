@@ -1,0 +1,103 @@
+"""The h-index kernel (``engine="kernel"``): CUDA wrapper and plain version.
+
+:func:`hindex_op` launches ``csrc/hindex.cu`` for a CUDA tensor and runs
+:func:`hindex_plain` for a CPU tensor; it never falls back from one to the
+other. :func:`hindex_plain` transcribes the JAX package's oracle
+(``repro/kernels/hindex/ref.py``):
+
+    out[r] = ext[r] + max{ i in [1, cand] : #{j : x[r, j] >= ext[r] + i} >= i }
+
+(0 if no ``i`` is feasible), with ``cand`` clamped to ``[1, width]``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# The plain version materializes at most this many [row, slot, candidate]
+# compares at a time (rows and candidates are chunked), so hub widths stay
+# within memory.
+_PLAIN_CHUNK = 1 << 27
+
+_fn = None
+
+
+def hindex_plain(x: torch.Tensor, ext: torch.Tensor, *, cand: int) -> torch.Tensor:
+    """Plain PyTorch h-index. ``x``: [rows, width] (-1 pad), ``ext``: [rows];
+    returns [rows] int32."""
+    rows, width = x.shape
+    cand = int(min(max(int(cand), 1), width))
+    x = x.to(torch.int32)
+    ext = ext.to(torch.int32)
+    out = torch.empty(rows, dtype=torch.int32, device=x.device)
+    c_step = max(1, min(cand, _PLAIN_CHUNK // width))
+    r_step = max(1, _PLAIN_CHUNK // (width * c_step))
+    for lo in range(0, rows, r_step):
+        xs, es = x[lo : lo + r_step], ext[lo : lo + r_step]
+        best = torch.zeros_like(es)
+        for c_lo in range(0, cand, c_step):
+            i = torch.arange(c_lo + 1, min(cand, c_lo + c_step) + 1,
+                             dtype=torch.int32, device=x.device)
+            thr = es[:, None] + i[None, :]  # [r, chunk]
+            cnt = (xs[:, :, None] >= thr[:, None, :]).sum(dim=1)  # [r, chunk]
+            best = torch.maximum(best, torch.where(cnt >= i, i, 0).amax(dim=1))
+        out[lo : lo + r_step] = es + best
+    return out
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from repro_torch.kernels.build import load
+
+        fn = load("hindex").kcore_hindex
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def hindex_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int) -> torch.Tensor:
+    """H-index of one padded bucket: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.
+
+    Args:
+      x: [rows, width] int32 (or int16, widened here) gathered neighbour
+        estimates, pad slots -1.
+      ext: [rows] int32 external information.
+      cand: candidate window (degeneracy bound; clamped to ``[1, width]``).
+    Returns:
+      [rows] int32 new estimates.
+
+    Every kernel launch adds one to ``hindex_op.launches``.
+    """
+    if x.dim() != 2 or x.shape[1] < 1 or ext.shape != (x.shape[0],):
+        raise ValueError(f"hindex_op: x {tuple(x.shape)} / ext {tuple(ext.shape)} "
+                         f"must be [rows, width] / [rows]")
+    if x.dtype == torch.int16:
+        x = x.to(torch.int32)
+    if x.dtype != torch.int32 or ext.dtype != torch.int32:
+        raise TypeError(f"hindex_op: x {x.dtype} / ext {ext.dtype} must be int32")
+    if x.device.type == "cpu" and ext.device.type == "cpu":
+        return hindex_plain(x, ext, cand=cand)
+    if x.device.type != "cuda" or ext.device != x.device:
+        raise ValueError(f"hindex_op: x on {x.device}, ext on {ext.device}; "
+                         f"both must be on one CUDA device (or both on the CPU)")
+    if not (x.is_contiguous() and ext.is_contiguous()):
+        raise ValueError("hindex_op: x and ext must be contiguous")
+    rows, width = x.shape
+    out = torch.empty(rows, dtype=torch.int32, device=x.device)
+    if rows == 0:
+        return out
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _kernel()(x.data_ptr(), ext.data_ptr(), out.data_ptr(),
+                    rows, width, int(cand), stream)
+    if err:
+        raise RuntimeError(f"kcore_hindex launch failed with CUDA error {err}")
+    hindex_op.launches += 1
+    return out
+
+
+hindex_op.launches = 0

@@ -1,0 +1,154 @@
+"""DC-kCore launcher of the PyTorch port -- the paper's workload as a CLI.
+
+  python -m repro_torch.launch.kcore --graph rmat:18:16 --thresholds 16,64 --engine fused
+  python -m repro_torch.launch.kcore --graph rmat:14:12 --reorder rcm --check
+  python -m repro_torch.launch.kcore --graph er:2000:8 --device cpu --check
+
+Graphs: ``rmat:<scale>:<edge_factor>``, ``ba:<n>:<m>``, ``er:<n>:<deg>``
+(``file:``/``npz:`` graphs and ``--edge-chunk`` streaming ingest arrive
+with the port's ``graph/io.py``).
+
+``--device`` picks where the sweep runs (default ``cuda``; ``cpu`` runs the
+kernels' plain PyTorch versions). ``--engine {sorted,count,kernel,fused}``
+selects the conquer sweep engine -- ``fused`` is the single-kernel CUDA
+sweep (gather + h-index + dirty push per bucket), ``kernel`` the CUDA
+h-index over a gathered matrix -- and ``--int16`` opts the fused engine
+into the halved-width estimate mode (falls back to int32 automatically when
+any starting estimate reaches 2^15; coreness is bit-identical in every
+case). ``--reorder {identity,bfs,rcm}`` applies a locality-aware node
+ordering to each part before tiling (``--reorder-sample N`` computes it
+from an N-slot edge sample); ``--max-bucket-rows`` overrides the tile
+autotuner with a uniform row cap (``auto`` = degree-profile autotuner,
+``none`` = one tile per degree class). ``--divide-chunk N`` sizes the
+chunked divide passes. ``--check`` compares with the BZ peeling oracle and
+exits 1 on a mismatch. The summary ends with each kernel's launch count.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+from repro_torch.core.dckcore import dc_kcore
+from repro_torch.core.divide import plan_thresholds
+from repro_torch.graph import barabasi_albert, erdos_renyi, rmat
+from repro_torch.graph.oracle import peel_coreness
+from repro_torch.kernels.fused import fused_sweep_op
+from repro_torch.kernels.hindex import hindex_op
+
+
+def load_graph(spec: str, seed: int):
+    """Build the synthetic graph for ``spec`` (numpy, seeded: the same
+    graph as the JAX package builds from the same spec and seed)."""
+    kind, _, rest = spec.partition(":")
+    if kind == "rmat":
+        scale, ef = (rest.split(":") + ["16"])[:2]
+        return rmat(int(scale), int(ef), seed=seed)
+    if kind == "ba":
+        n, m = rest.split(":")
+        return barabasi_albert(int(n), int(m), seed=seed)
+    if kind == "er":
+        n, d = rest.split(":")
+        return erdos_renyi(int(n), float(d), seed=seed)
+    if kind in ("file", "npz"):
+        raise NotImplementedError(
+            f"{kind}: graphs come with the port's graph/io.py (ROADMAP.md, "
+            f"queue 1, item 3)")
+    raise ValueError(f"unknown graph spec {spec}")
+
+
+def parse_max_bucket_rows(v: str):
+    """argparse type for --max-bucket-rows: "auto" | "none" -> None | int."""
+    if v == "auto":
+        return "auto"
+    if v == "none":
+        return None
+    try:
+        return int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected 'auto', 'none' or an int, got {v!r}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--graph", default="rmat:14:16")
+    ap.add_argument("--thresholds", default="", help="comma list; empty = monolithic")
+    ap.add_argument("--budget-gb", type=float, default=None,
+                    help="auto-plan thresholds for this per-part budget")
+    ap.add_argument("--strategy", choices=["rough", "exact"], default="rough")
+    ap.add_argument("--reorder", choices=["identity", "bfs", "rcm"], default="identity",
+                    help="locality-aware node ordering applied per part")
+    ap.add_argument("--reorder-sample", type=int, default=None, metavar="SLOTS",
+                    help="compute the ordering from an edge sample of this "
+                         "many slots instead of the full CSR traversal")
+    ap.add_argument("--engine", choices=["sorted", "count", "kernel", "fused"],
+                    default="sorted",
+                    help="conquer sweep engine (fused = single-kernel CUDA "
+                         "sweep; kernel = CUDA h-index)")
+    ap.add_argument("--int16", action="store_true",
+                    help="fused engine only: int16 estimate vector "
+                         "(overflow-guarded int32 fallback; bit-identical "
+                         "coreness)")
+    ap.add_argument("--max-bucket-rows", type=parse_max_bucket_rows, default="auto",
+                    help='tile row cap: "auto" (degree-profile autotuner), '
+                         '"none" (one tile per degree class) or an int')
+    ap.add_argument("--divide-chunk", type=int, default=None, metavar="SLOTS",
+                    help="chunk budget (adjacency slots) of the divide "
+                         "passes; default = the built-in bounded budget")
+    ap.add_argument("--device", default="cuda",
+                    help="where the sweep runs: cuda (default) or cpu")
+    ap.add_argument("--check", action="store_true", help="verify vs BZ peeling")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if args.int16 and args.engine != "fused":
+        ap.error("--int16 requires --engine fused")
+
+    g = load_graph(args.graph, args.seed)
+    print(f"graph: n={g.n_nodes:,} m={g.n_edges:,} max_deg={int(g.degrees.max())}")
+    if args.budget_gb is not None:
+        thresholds = plan_thresholds(g.degrees, int(args.budget_gb * 2**30))
+        print(f"planned thresholds for {args.budget_gb} GB/part: {thresholds}")
+    else:
+        thresholds = [int(t) for t in args.thresholds.split(",") if t]
+
+    launches0 = (fused_sweep_op.launches, hindex_op.launches)
+    core, report = dc_kcore(
+        g, thresholds,
+        strategy=args.strategy,
+        reorder=args.reorder,
+        reorder_sample_edges=args.reorder_sample,
+        max_bucket_rows=args.max_bucket_rows,
+        divide_chunk=args.divide_chunk,
+        engine=args.engine, int16=args.int16, device=args.device,
+    )
+    print(f"\nDC-kCore done in {report.total_time_s:.2f}s "
+          f"(preprocess {report.preprocess_time_s:.2f}s, engine={args.engine}"
+          f"{'+int16' if args.int16 else ''}, reorder={args.reorder}, "
+          f"device={args.device})")
+    print(f"device idle fraction: {report.idle_fraction:.3f} "
+          f"(sweeping {report.total_decompose_time_s:.2f}s of "
+          f"{report.total_time_s:.2f}s wall)")
+    print(f"k_max = {int(core.max())}, total comm = {report.total_comm:,} updates, "
+          f"peak part bytes = {report.peak_bytes/2**20:.1f} MiB")
+    print(f"sweep work (frontier): {report.total_gathered_rows:,} gathered rows "
+          f"vs {report.total_full_sweep_rows:,} full-sweep rows; "
+          f"measured collective bytes = {report.total_collective_bytes:,}")
+    for p in report.parts:
+        print(f"  part {p.name:>10}: n={p.n_nodes:>9,} m={p.n_edges:>11,} "
+              f"iters={p.iterations:>3} comm={p.comm_amount:>10,} "
+              f"work={p.gathered_rows:>10,}/{p.full_sweep_rows:<10,} "
+              f"adj_density={p.bitmap_density:.3f} "
+              f"divide_peak={p.divide_transient_bytes/2**20:.2f}MiB "
+              f"finalized={p.finalized:,}")
+    print(f"kernel launches: fused_sweep={fused_sweep_op.launches - launches0[0]:,} "
+          f"hindex={hindex_op.launches - launches0[1]:,}")
+    if args.check:
+        t0 = time.perf_counter()
+        oracle = peel_coreness(g)
+        ok = bool((core == oracle).all())
+        print(f"oracle check ({time.perf_counter()-t0:.1f}s): {'CONSISTENT' if ok else 'MISMATCH'}")
+        if not ok:
+            raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,37 @@
+"""NVIDIA H100 SXM constants (the target card of the PyTorch port).
+
+Published figures (NVIDIA H100 data sheet and Hopper architecture white
+paper, SXM part, full 700 W power limit):
+
+* 80 GB of HBM3 at 3.35 TB/s;
+* 132 streaming multiprocessors (SMs);
+* 989 TFLOP/s dense bf16 on the tensor cores.
+
+The k-core sweep does no tensor-core math. Its operations are int32
+compares and adds, and on Hopper those run on the CUDA cores: each SM has
+64 INT32 lanes (4 sub-partitions of 16), each retiring one int32 op per
+clock. The INT32 rate is therefore
+
+    INT32_OPS = SMS * INT32_LANES_PER_SM * sm_clock_hz
+              = 132 * 64 * 1.98e9 = 16.73e12 ops/s
+
+at the 1,980 MHz maximum SM clock of the SXM part. A card capped below
+700 W may clock lower under load; :func:`int32_ops_per_s` recomputes the
+rate from the SM count and the clock read on the card (``nvidia-smi
+--query-gpu=clocks.max.sm``).
+"""
+
+HBM_BW = 3.35e12  # bytes/s
+HBM_BYTES = 80 * 10**9
+PEAK_FLOPS_BF16 = 989e12  # dense, tensor cores
+SMS = 132
+INT32_LANES_PER_SM = 64
+SM_CLOCK_HZ = 1.98e9  # maximum SM clock of the SXM part
+
+
+def int32_ops_per_s(sms: int = SMS, sm_clock_hz: float = SM_CLOCK_HZ) -> float:
+    """CUDA-core int32 op rate: SMs x INT32 lanes per SM x SM clock."""
+    return float(sms) * INT32_LANES_PER_SM * float(sm_clock_hz)
+
+
+PEAK_INT32_OPS = int32_ops_per_s()

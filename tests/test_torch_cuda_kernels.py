@@ -1,0 +1,141 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every comparison is exact (all values are integers). The kernels have no
+CPU mode, so these tests need an NVIDIA GPU with ``nvcc`` and skip
+elsewhere; the plain versions are pinned against the JAX package on the
+CPU in ``test_torch_kernels.py``. Run on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.decompose import decompose
+from repro_torch.graph.build import bucketize
+from repro_torch.graph.generators import rmat
+from repro_torch.graph.oracle import peel_coreness
+from repro_torch.kernels.fused import fused_sweep_op, fused_sweep_plain
+from repro_torch.kernels.hindex import hindex_op, hindex_plain
+
+pytestmark = pytest.mark.cuda
+
+# Every dispatch class: thread per row (<= 16), warp per row (<= 1024, each
+# register-count instantiation), block per row; odd widths too.
+WIDTHS = [1, 5, 8, 16, 17, 32, 33, 64, 100, 256, 512, 1000, 1024, 1025,
+          2048, 8192, 65536]
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rows_for(w):
+    return max(3, min(300, (1 << 16) // w))
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+def test_hindex_kernel_vs_plain(dev, w):
+    rng = np.random.default_rng(w)
+    rows = _rows_for(w)
+    x = rng.integers(-1, w + 6, size=(rows, w)).astype(np.int32)
+    ext = rng.integers(0, 8, size=rows).astype(np.int32)
+    for cand in sorted({1, 7, min(w, 64), w, 1389, w + 10}):
+        xt, et = torch.from_numpy(x).to(dev), torch.from_numpy(ext).to(dev)
+        got = hindex_op(xt, et, cand=cand)
+        want = hindex_plain(xt, et, cand=cand)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (w, cand)
+
+
+def _valid_state(rng, n, w, ext):
+    # Estimates that are upper bounds the engines can reach (>= ext + any
+    # h-index over a width-w row).
+    return np.concatenate([ext[:-1] + w + rng.integers(0, 5, n), [-1]])
+
+
+@pytest.mark.parametrize("w", WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
+@pytest.mark.parametrize("track_dirty", [True, False])
+def test_fused_kernel_vs_plain(dev, w, dtype, track_dirty):
+    rng = np.random.default_rng(w + (dtype == torch.int16))
+    n = 3 * w + 50
+    rows = min(_rows_for(w), n)
+    ext = np.concatenate([rng.integers(0, 4, n), [0]]).astype(np.int32)
+    c = torch.from_numpy(_valid_state(rng, n, w, ext)).to(dtype).to(dev)
+    ext_t = torch.from_numpy(ext).to(dev)
+    ids_np = rng.permutation(n)[:rows].astype(np.int32)
+    ids_np[rng.random(rows) < 0.2] = n  # sentinel pad rows
+    ids = torch.from_numpy(ids_np).to(dev)
+    neigh = torch.from_numpy(np.where(
+        rng.random((rows, w)) < 0.3, n, rng.integers(0, n, (rows, w))
+    ).astype(np.int32)).to(dev)
+    cand = int(rng.integers(1, w + 10))
+    for _sweep in range(3):
+        got = fused_sweep_op(c, ext_t, ids, neigh, cand=cand, track_dirty=track_dirty)
+        want = fused_sweep_plain(c, ext_t, ids, neigh, cand=cand, track_dirty=track_dirty)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (w, dtype, track_dirty, _sweep)
+        c[ids.long()] = got[0].to(dtype)
+        c[-1] = -1
+
+
+def test_fused_dirty_buffer_accumulates(dev):
+    rng = np.random.default_rng(0)
+    n, w, rows = 200, 8, 64
+    ext = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    c = torch.from_numpy(_valid_state(rng, n, w, ext.cpu().numpy())).to(torch.int32).to(dev)
+    dirty = torch.zeros(n + 1, dtype=torch.int8, device=dev)
+    ref = torch.zeros(n + 1, dtype=torch.int8, device=dev)
+    for part in range(2):
+        ids = torch.arange(part * rows, (part + 1) * rows, dtype=torch.int32, device=dev)
+        neigh = torch.from_numpy(rng.integers(0, n + 1, (rows, w)).astype(np.int32)).to(dev)
+        _, _, out = fused_sweep_op(c, ext, ids, neigh, cand=w, dirty=dirty)
+        assert out is dirty
+        fused_sweep_plain(c, ext, ids, neigh, cand=w, dirty=ref)
+    torch.cuda.synchronize()
+    assert torch.equal(dirty, ref)
+    assert int(dirty[-1]) == 0  # the sentinel slot is never pushed
+
+
+def test_wrappers_count_launches_and_reject_bad_input(dev):
+    x = torch.full((4, 8), 3, dtype=torch.int32, device=dev)
+    ext = torch.zeros(4, dtype=torch.int32, device=dev)
+    before = hindex_op.launches
+    hindex_op(x, ext, cand=8)
+    assert hindex_op.launches == before + 1
+    with pytest.raises(ValueError, match="contiguous"):
+        hindex_op(x.t().contiguous().t(), ext, cand=8)
+    with pytest.raises(ValueError, match="device"):
+        hindex_op(x, ext.cpu(), cand=8)
+    with pytest.raises(TypeError):
+        hindex_op(x.to(torch.int64), ext, cand=8)
+    c = torch.full((11,), 5, dtype=torch.int32, device=dev)
+    c[-1] = -1
+    ext_pad = torch.zeros(11, dtype=torch.int32, device=dev)
+    ids = torch.arange(4, dtype=torch.int32, device=dev)
+    neigh = torch.full((4, 8), 10, dtype=torch.int32, device=dev)
+    before = fused_sweep_op.launches
+    fused_sweep_op(c, ext_pad, ids, neigh, cand=8)
+    assert fused_sweep_op.launches == before + 1
+    with pytest.raises(TypeError):
+        fused_sweep_op(c.to(torch.int64), ext_pad, ids, neigh, cand=8)
+
+
+@pytest.mark.parametrize("op,int16", [("kernel", False), ("fused", False), ("fused", True)])
+def test_decompose_on_card_matches_cpu(dev, op, int16):
+    g = rmat(11, 8, seed=7)
+    bg = bucketize(g)
+    launches = (hindex_op if op == "kernel" else fused_sweep_op)
+    before = launches.launches
+    on_card = decompose(bg, op=op, int16=int16, device="cuda")
+    assert launches.launches > before
+    on_cpu = decompose(bg, op=op, int16=int16, device="cpu")
+    np.testing.assert_array_equal(on_card.coreness, peel_coreness(g))
+    np.testing.assert_array_equal(on_card.coreness, on_cpu.coreness)
+    assert on_card.comm_per_iter == on_cpu.comm_per_iter
+    assert on_card.active_rows_per_iter == on_cpu.active_rows_per_iter
