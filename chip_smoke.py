@@ -26,16 +26,42 @@ and fails (non-zero exit, no result line) without them. Phases:
    Batagelj-Zaversnik peeling oracle. The kernels' launch counters are
    zeroed just before and read just after, and each engine's kernel must
    have launched.
-4. The kernel table as one JSON line, then the result line.
+4. The partial-counts kernel of the distributed engine against its plain
+   version at the same 57 tile shapes and two states, with each tile's
+   neighbour slots whole (one slot shard) and split in two halves (two
+   slot shards, whose counts must also add up to the whole's); exact
+   equality. Then its device time for one full sweep, per width class,
+   its plain version's time and its bound.
+5. The distributed main path on one rank: ``dc_kcore`` through
+   ``make_distributed_decompose`` on a 1x1 plan with the counts kernel, at
+   ``rmat(20, 16, seed=0)`` with the thresholds (64, 16) and monolithic,
+   plus a monolithic run without the kernel that must give the same
+   per-sweep trajectories. Every run must equal the oracle; the counts
+   kernel's launch counter is zeroed just before and read just after, and
+   must be above 0.
+6. Four ranks on the one card: four processes (this script with
+   ``--fleet-rank``), gloo over a ``file://`` store, CUDA tensors, a
+   (2, 2) data x model plan, on ``rmat(16, 16, seed=0)`` written by this
+   process. ``dc_kcore`` with the thresholds and the counts kernel must
+   equal the oracle and the one-rank run's trajectories; a
+   ``frontier=False`` run's collective bytes must equal the planned
+   schedule. Any rank's failure fails the smoke. gloo moves the
+   collectives through host memory: these are not NCCL or NVLink times.
+7. Crash and resume on ``rmat(16, 16)``, one rank, counts kernel: snapshots
+   every sweep, a crash raised at the second snapshot save, a resume that
+   must restart mid-part and reach the uninterrupted run's coreness.
+8. The kernel table as one JSON line, then the result line.
 
 Nothing here imports JAX or the JAX package (``src/repro``).
 """
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -44,6 +70,9 @@ SRC = ROOT / "src"
 
 SCALE, EDGE_FACTOR, SEED = 20, 16, 0
 THRESHOLDS = (64, 16)
+SMALL_SCALE = 16  # rmat(16, 16, seed=0): the four-rank and crash-resume phases
+FLEET_SHAPE, FLEET_AXES = (2, 2), ("data", "model")
+FLEET_TIMEOUT_S = 600
 SLEEP_CYCLES = 20_000_000  # ~10 ms at 1.98 GHz: the host enqueues a whole sweep meanwhile
 
 
@@ -79,6 +108,7 @@ def device_time_ms(torch, fn, reps: int) -> float:
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -96,7 +126,9 @@ def main() -> int:
     from repro_torch.graph.build import bucketize
     from repro_torch.graph.generators import rmat
     from repro_torch.graph.oracle import peel_coreness
+    from repro_torch.core.distributed import MeshPlan, make_distributed_decompose
     from repro_torch.kernels import build
+    from repro_torch.kernels.counts import partial_counts_op, partial_counts_plain
     from repro_torch.kernels.fused import fused_sweep_op, fused_sweep_plain
     from repro_torch.kernels.hindex import hindex_op, hindex_plain
     from repro_torch.roofline import hw
@@ -323,12 +355,245 @@ def main() -> int:
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main path never launched: {launches}")
 
+    # ---------------- phase 4: the counts kernel vs plain ---------------- #
+    def slot_shards(x, k):
+        """The [rows, width / k] blocks of k slot shards (widths are powers
+        of two, at least 8)."""
+        w = x.shape[1] // k
+        return [x[:, j * w:(j + 1) * w].contiguous() for j in range(k)]
+
+    max_err["counts"] = 0
+    checks["counts"] = 0
+    t0 = time.perf_counter()
+    for sname, state in states.items():
+        c = padded(state, torch.int32)
+        for ids, neigh in tiles:
+            x, e = c[neigh], ext_pad[ids]
+            whole = None
+            for k in (1, 2):
+                total = None
+                for xs in slot_shards(x, k):
+                    got = partial_counts_op(xs, e, cand=cand)
+                    want = partial_counts_plain(xs, e, cand=cand)
+                    err = int((got.long() - want.long()).abs().max())
+                    max_err["counts"] = max(max_err["counts"], err)
+                    checks["counts"] += 1
+                    if err:
+                        raise AssertionError(
+                            f"counts kernel != plain: state {sname} width {neigh.shape[1]} "
+                            f"slot shards {k} max abs err {err}")
+                    total = got if total is None else total + got
+                if whole is None:
+                    whole = total
+                elif not torch.equal(total, whole):
+                    raise AssertionError(f"two slot shards' counts do not add up to the "
+                                         f"whole row's: state {sname} width {neigh.shape[1]}")
+    torch.cuda.synchronize()
+    log(f"counts kernel vs plain version: {checks['counts']} comparisons at all "
+        f"{len(tiles)} tile shapes, one and two slot shards, states {list(states)}, "
+        f"cand={cand}: max abs err {max_err['counts']} (tolerance 0) in "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    halves = [slot_shards(x, 2) for x in gathered]
+
+    def counts_kernel_all():
+        for x, e in zip(gathered, ext_rows):
+            partial_counts_op(x, e, cand=cand)
+
+    def counts_kernel_halves():
+        for hs, e in zip(halves, ext_rows):
+            for h in hs:
+                partial_counts_op(h, e, cand=cand)
+
+    def counts_plain_all():
+        for x, e in zip(gathered, ext_rows):
+            partial_counts_plain(x, e, cand=cand)
+
+    counts_kernel_all()  # warm-up
+    counts_ms = device_time_ms(torch, counts_kernel_all, reps=7)
+    counts_half_ms = device_time_ms(torch, counts_kernel_halves, reps=7)
+    counts_plain_ms = device_time_ms(torch, counts_plain_all, reps=3)
+    # Least time: each slot and ext read once, the [rows, cand] int32 counts
+    # written once, over the HBM rate; one histogram update per slot over
+    # the INT32 rate.
+    counts_bytes = slots * 4 + rows * 4 + rows * cand * 4
+    counts_half_bytes = counts_bytes + rows * 4 + rows * cand * 4  # ext read, counts written twice
+    counts_bound_ms = max(counts_bytes / hw.HBM_BW, slots / int32_rate) * 1e3
+    counts_half_bound_ms = max(counts_half_bytes / hw.HBM_BW, slots / int32_rate) * 1e3
+    counts_by = "bytes" if counts_bytes / hw.HBM_BW >= slots / int32_rate else "operations"
+    log(f"counts, one full sweep at the start state ({len(tiles)} launches, "
+        f"{rows * cand * 4 / 1e9:.3f} GB of counts): kernel {counts_ms:.4f} ms (plain "
+        f"{counts_plain_ms:.2f} ms, bound {counts_bound_ms:.4f} ms by {counts_by}); two slot "
+        f"shards ({2 * len(tiles)} launches): {counts_half_ms:.4f} ms (bound "
+        f"{counts_half_bound_ms:.4f} ms); no single PyTorch call computes suffix counts, "
+        f"so there is no library time")
+    per_width_counts = {}
+    for (ids, neigh), x, e, hs in zip(tiles, gathered, ext_rows, halves):
+        w = int(neigh.shape[1])
+        k1 = device_time_ms(torch, lambda: partial_counts_op(x, e, cand=cand), reps=5)
+        k2 = device_time_ms(torch, lambda: [partial_counts_op(h, e, cand=cand) for h in hs],
+                            reps=5)
+        acc = per_width_counts.setdefault(w, [0, 0, 0.0, 0.0, 0.0])
+        acc[0] += 1
+        acc[1] += int(neigh.shape[0])
+        acc[2] += k1
+        acc[3] += k2
+        acc[4] += (x.numel() * 4 + x.shape[0] * 4 + x.shape[0] * cand * 4) / hw.HBM_BW * 1e3
+    for w, (nt, nr, k1, k2, b) in sorted(per_width_counts.items()):
+        log(f"  counts width {w:>6}: {nt:>2} tile(s) {nr:>8,} rows: one shard {k1:.4f} ms, "
+            f"two shards {k2:.4f} ms, bound {b:.4f} ms (each tile timed alone)")
+    del halves
+
+    # ---------------- phase 5: the distributed main path, one rank -------- #
+    def recording(fn):
+        """``fn`` (a DecomposeFn) that also keeps each part's result."""
+        results = []
+
+        def rec(bg, **kw):
+            res = fn(bg, **kw)
+            results.append(res)
+            return res
+        return rec, results
+
+    plan1 = MeshPlan()
+    dist_runs = [
+        ("counts kernel", THRESHOLDS, True),
+        ("counts kernel", (), True),
+        ("plain counts", (), False),
+    ]
+    trajectories = {}
+    partial_counts_op.launches = 0
+    for name, thresholds, use_kernel in dist_runs:
+        before = partial_counts_op.launches
+        fn, results = recording(make_distributed_decompose(
+            plan1, use_kernel=use_kernel, device="cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        core, rep = dc_kcore(g, thresholds, decompose_fn=fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ok = bool((core == oracle).all())
+        d_counts = partial_counts_op.launches - before
+        trajectories[name, thresholds] = [(r.comm_per_iter, r.active_rows_per_iter)
+                                          for r in results]
+        log(f"distributed 1x1 {name:>13} thresholds={list(thresholds)}: wall {wall:.2f}s "
+            f"(sweeping {rep.total_decompose_time_s:.2f}s), sweeps {rep.total_iterations}, "
+            f"total comm {rep.total_comm:,}, gathered rows {rep.total_gathered_rows:,}, "
+            f"peak part bytes {rep.peak_bytes:,}, launches counts={d_counts:,}: "
+            f"{'CONSISTENT' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"distributed {name} {thresholds}: coreness != oracle")
+        if (d_counts > 0) != use_kernel:
+            raise AssertionError(f"distributed {name}: {d_counts} counts launches")
+    if trajectories["counts kernel", ()] != trajectories["plain counts", ()]:
+        raise AssertionError("the monolithic runs with and without the counts kernel "
+                             "took different per-sweep trajectories")
+    launches["counts"] = partial_counts_op.launches
+    if launches["counts"] <= 0:
+        raise AssertionError("the counts kernel never launched on the distributed main path")
+
+    # ---------------- phase 6: four ranks on the one card ---------------- #
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        small = rmat(SMALL_SCALE, EDGE_FACTOR, seed=SEED)
+        np.savez(work / "graph.npz", indptr=small.indptr, indices=small.indices,
+                 n_nodes=small.n_nodes)
+        small_oracle = peel_coreness(small)
+        fn1, res1 = recording(make_distributed_decompose(plan1, use_kernel=True, device="cuda"))
+        core1, rep1 = dc_kcore(small, THRESHOLDS, decompose_fn=fn1)
+        if not (core1 == small_oracle).all():
+            raise AssertionError("distributed 1x1 on the small graph: coreness != oracle")
+        traj1 = [[r.comm_per_iter, r.active_rows_per_iter] for r in res1]
+        log(f"graph rmat({SMALL_SCALE},{EDGE_FACTOR},seed={SEED}): n={small.n_nodes:,} "
+            f"m={small.n_edges:,}; one-rank reference {rep1.total_iterations} sweeps in "
+            f"{len(rep1.parts)} parts: CONSISTENT")
+
+        t0 = time.perf_counter()
+        procs = []
+        for r in range(4):
+            out = open(work / f"rank{r}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--fleet-rank", str(r),
+                 str(work)], stdout=out, stderr=subprocess.STDOUT), out))
+        deadline = time.monotonic() + FLEET_TIMEOUT_S
+        try:
+            for p, _out in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p, out in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                out.close()
+        failed = [r for r, (p, _o) in enumerate(procs) if p.returncode != 0]
+        if failed:
+            for r in failed:
+                log(f"--- rank {r} (exit {procs[r][0].returncode}) ---")
+                log((work / f"rank{r}.log").read_text()[-4000:])
+            raise AssertionError(f"four-rank phase: ranks {failed} failed")
+        fleet = [json.loads((work / f"rank{r}.json").read_text()) for r in range(4)]
+        for r, res in enumerate(fleet):
+            core_r = np.load(work / f"core{r}.npy")
+            if not (core_r == small_oracle).all():
+                raise AssertionError(f"four-rank phase: rank {r} coreness != oracle")
+            if res["trajectories"] != traj1:
+                raise AssertionError(f"four-rank phase: rank {r} comm_per_iter / "
+                                     f"active_rows_per_iter differ from the one-rank run's")
+            if res["full_sweep_bytes"] != res["planned_bytes"]:
+                raise AssertionError(f"four-rank phase: rank {r} frontier=False collective "
+                                     f"bytes {res['full_sweep_bytes']} != planned schedule "
+                                     f"{res['planned_bytes']}")
+            if res["launches"] <= 0:
+                raise AssertionError(f"four-rank phase: rank {r} never launched the counts kernel")
+        blocks = sorted(tuple(res["blocks"]) for res in fleet)
+        if blocks != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+            raise AssertionError(f"four-rank phase: row/slot blocks {blocks}")
+        log(f"four ranks, {FLEET_SHAPE} {FLEET_AXES} plan over gloo on one card: every rank "
+            f"CONSISTENT, trajectories equal to the one-rank run's, frontier=False collective "
+            f"bytes equal to the planned schedule; rank 0: dc_kcore wall "
+            f"{fleet[0]['wall']:.2f}s (sweeping {fleet[0]['sweeping']:.2f}s), "
+            f"{fleet[0]['sweeps']} sweeps, {sum(fleet[0]['collective_bytes']):,} collective "
+            f"bytes per rank, counts launches per rank "
+            f"{[res['launches'] for res in fleet]}; phase {time.perf_counter() - t0:.1f}s "
+            f"(gloo through host memory: not NCCL or NVLink times)")
+
+        # ---------------- phase 7: crash and mid-part resume ------------- #
+        class Crash(Exception):
+            pass
+
+        saves = []
+
+        def killer(cursor, sweep, _save_s):
+            saves.append((cursor, sweep))
+            if len(saves) == 2:
+                raise Crash
+
+        ck = str(work / "ck")
+        fnr = make_distributed_decompose(plan1, use_kernel=True, device="cuda")
+        try:
+            dc_kcore(small, THRESHOLDS, decompose_fn=fnr, checkpoint_dir=ck,
+                     sweep_checkpoint_every=1, on_sweep_saved=killer)
+            raise AssertionError("crash-resume phase: the injected crash never fired")
+        except Crash:
+            pass
+        core_r, rep_r = dc_kcore(small, THRESHOLDS, decompose_fn=fnr, checkpoint_dir=ck,
+                                 resume=True, sweep_checkpoint_every=1)
+        resumed = [(p.name, p.resumed_at_sweep) for p in rep_r.parts]
+        if not (core_r == core1).all():
+            raise AssertionError("crash-resume phase: resumed coreness != uninterrupted run")
+        if not any(sweep > 0 for _name, sweep in resumed):
+            raise AssertionError(f"crash-resume phase: no part resumed mid-part {resumed}")
+        log(f"crash and resume: crashed at snapshot saves {saves}, resumed parts "
+            f"(name, sweep) {resumed}: coreness equal to the uninterrupted run")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
     if bad:
         raise AssertionError(f"JAX or the JAX package was imported: {bad}")
 
-    # ---------------- phase 4: result lines ---------------- #
+    # ---------------- phase 8: result lines ---------------- #
     kernels = [
         {"name": "fused_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused.cu",
@@ -342,6 +607,12 @@ def main() -> int:
          "launches": launches["hindex"], "max_abs_err": max_err["hindex"],
          "ms": hindex_ms, "plain_ms": hindex_plain_ms, "bound_ms": hindex_bound_ms,
          "bound_by": hindex_by, "library_ms": None},
+        {"name": "partial_counts", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/counts.cu",
+         "replaces": "src/repro/kernels/counts/counts.py:42",
+         "launches": launches["counts"], "max_abs_err": max_err["counts"],
+         "ms": counts_ms, "plain_ms": counts_plain_ms, "bound_ms": counts_bound_ms,
+         "bound_by": counts_by, "library_ms": None},
     ]
     log(f"chip_smoke total {time.perf_counter() - t_all:.1f}s")
     log(card)
@@ -352,5 +623,64 @@ def main() -> int:
     return 0
 
 
+def fleet_rank(rank: int, work: str) -> int:
+    """One rank of phase 6: join the gloo group, run the (2, 2) plan on the
+    graph the parent wrote to ``work``, write this rank's results there."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                            rank=rank, world_size=4)
+    from repro_torch.core.dckcore import dc_kcore
+    from repro_torch.core.distributed import (decompose_distributed,
+                                              make_distributed_decompose,
+                                              planned_collective_schedule)
+    from repro_torch.core.hindex import hindex_of_sequence
+    from repro_torch.graph.build import bucketize
+    from repro_torch.graph.structs import Graph
+    from repro_torch.kernels.counts import partial_counts_op
+    from repro_torch.launch.mesh import make_mesh_plan
+
+    data = np.load(Path(work) / "graph.npz")
+    g = Graph(indptr=data["indptr"], indices=data["indices"], n_nodes=int(data["n_nodes"]))
+    plan = make_mesh_plan(FLEET_SHAPE, FLEET_AXES)
+    fn = make_distributed_decompose(plan, use_kernel=True, device="cuda")
+    results = []
+
+    def rec(bg, **kw):
+        res = fn(bg, **kw)
+        results.append(res)
+        return res
+
+    partial_counts_op.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    core, rep = dc_kcore(g, THRESHOLDS, decompose_fn=rec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = partial_counts_op.launches
+    bg = bucketize(g)
+    cand = max(1, hindex_of_sequence(bg.degrees.astype(np.int64) + bg.ext))
+    full = decompose_distributed(bg, plan, use_kernel=True, frontier=False, device="cuda")
+    planned = planned_collective_schedule(
+        [b.n_rows for b in bg.buckets], plan, cand, n_iters=full.iterations,
+        full_sweeps=full.iterations, frontier=False)
+    np.save(Path(work) / f"core{rank}.npy", core)
+    (Path(work) / f"rank{rank}.json").write_text(json.dumps({
+        "trajectories": [[r.comm_per_iter, r.active_rows_per_iter] for r in results],
+        "collective_bytes": [b for r in results for b in r.collective_bytes_per_iter],
+        "full_sweep_bytes": full.collective_bytes_per_iter, "planned_bytes": planned,
+        "blocks": [plan.node_index, plan.slot_index], "launches": launches,
+        "wall": wall, "sweeping": rep.total_decompose_time_s, "sweeps": rep.total_iterations,
+    }))
+    dist.destroy_process_group()
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--fleet-rank":
+        sys.exit(fleet_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

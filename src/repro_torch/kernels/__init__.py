@@ -3,7 +3,9 @@
 * :mod:`repro_torch.kernels.fused` -- gather + h-index + dirty push per
   bucket (``engine="fused"``), from ``csrc/fused.cu``;
 * :mod:`repro_torch.kernels.hindex` -- h-index over pre-gathered estimates
-  (``engine="kernel"``), from ``csrc/hindex.cu``.
+  (``engine="kernel"``), from ``csrc/hindex.cu``;
+* :mod:`repro_torch.kernels.counts` -- per-slot-shard suffix counts of the
+  distributed engine (``use_kernel=True``), from ``csrc/counts.cu``.
 
 Each wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors. :mod:`repro_torch.kernels.build` compiles the

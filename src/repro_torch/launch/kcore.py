@@ -3,6 +3,8 @@
   python -m repro_torch.launch.kcore --graph rmat:18:16 --thresholds 16,64 --engine fused
   python -m repro_torch.launch.kcore --graph rmat:14:12 --reorder rcm --check
   python -m repro_torch.launch.kcore --graph er:2000:8 --device cpu --check
+  python -m repro_torch.launch.kcore --graph rmat:12:8 --thresholds 16,4 \
+      --checkpoint-dir ck --sweep-checkpoint-every 1 --resume --check
 
 Graphs: ``rmat:<scale>:<edge_factor>``, ``ba:<n>:<m>``, ``er:<n>:<deg>``
 (``file:``/``npz:`` graphs and ``--edge-chunk`` streaming ingest arrive
@@ -20,7 +22,12 @@ ordering to each part before tiling (``--reorder-sample N`` computes it
 from an N-slot edge sample); ``--max-bucket-rows`` overrides the tile
 autotuner with a uniform row cap (``auto`` = degree-profile autotuner,
 ``none`` = one tile per degree class). ``--divide-chunk N`` sizes the
-chunked divide passes. ``--check`` compares with the BZ peeling oracle and
+chunked divide passes. ``--checkpoint-dir`` saves the pipeline state after
+every part (``--sweep-checkpoint-every K`` also snapshots the conquer
+state every K sweeps), ``--resume`` re-enters at the first unfinished part
+(or mid-part, at the last snapshot) and ``--ckpt-retain N`` keeps the N
+newest steps; the format is the JAX package's, so either CLI resumes the
+other's directory. ``--check`` compares with the BZ peeling oracle and
 exits 1 on a mismatch. The summary ends with each kernel's launch count.
 """
 from __future__ import annotations
@@ -94,13 +101,33 @@ def main(argv=None):
     ap.add_argument("--divide-chunk", type=int, default=None, metavar="SLOTS",
                     help="chunk budget (adjacency slots) of the divide "
                          "passes; default = the built-in bounded budget")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save pipeline state here after every part")
+    ap.add_argument("--sweep-checkpoint-every", type=int, default=None,
+                    metavar="K",
+                    help="also snapshot the conquer state every K sweeps "
+                         "(mid-part resume; requires --checkpoint-dir)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint-dir at the first "
+                         "unfinished part (or mid-part, at the last "
+                         "completed sweep snapshot)")
+    ap.add_argument("--ckpt-retain", type=int, default=2, metavar="N",
+                    help="keep the N newest boundary/sweep checkpoint "
+                         "steps (default 2: a corrupted latest step falls "
+                         "back to its predecessor on --resume)")
     ap.add_argument("--device", default="cuda",
                     help="where the sweep runs: cuda (default) or cpu")
     ap.add_argument("--check", action="store_true", help="verify vs BZ peeling")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.resume and args.checkpoint_dir is None:
+        ap.error("--resume requires --checkpoint-dir")
+    if args.sweep_checkpoint_every is not None and args.checkpoint_dir is None:
+        ap.error("--sweep-checkpoint-every requires --checkpoint-dir")
     if args.int16 and args.engine != "fused":
         ap.error("--int16 requires --engine fused")
+    if args.ckpt_retain < 1:
+        ap.error("--ckpt-retain must be >= 1")
 
     g = load_graph(args.graph, args.seed)
     print(f"graph: n={g.n_nodes:,} m={g.n_edges:,} max_deg={int(g.degrees.max())}")
@@ -119,6 +146,10 @@ def main(argv=None):
         max_bucket_rows=args.max_bucket_rows,
         divide_chunk=args.divide_chunk,
         engine=args.engine, int16=args.int16, device=args.device,
+        checkpoint_dir=args.checkpoint_dir,
+        resume=args.resume,
+        sweep_checkpoint_every=args.sweep_checkpoint_every,
+        ckpt_retain=args.ckpt_retain,
     )
     print(f"\nDC-kCore done in {report.total_time_s:.2f}s "
           f"(preprocess {report.preprocess_time_s:.2f}s, engine={args.engine}"
@@ -127,18 +158,32 @@ def main(argv=None):
     print(f"device idle fraction: {report.idle_fraction:.3f} "
           f"(sweeping {report.total_decompose_time_s:.2f}s of "
           f"{report.total_time_s:.2f}s wall)")
+    if report.quarantined_steps:
+        print(f"checkpoint integrity: {report.quarantined_steps} quarantined "
+              f"checkpoint step(s)")
+    if report.resumed_parts:
+        print(f"resumed: {report.resumed_parts} part(s) restored from "
+              f"{args.checkpoint_dir}, not re-run")
+    for p in report.parts:
+        if p.resumed_at_sweep:
+            print(f"resumed mid-part: {p.name} warm-restarted at sweep "
+                  f"{p.resumed_at_sweep} from a sweep snapshot")
     print(f"k_max = {int(core.max())}, total comm = {report.total_comm:,} updates, "
           f"peak part bytes = {report.peak_bytes/2**20:.1f} MiB")
     print(f"sweep work (frontier): {report.total_gathered_rows:,} gathered rows "
           f"vs {report.total_full_sweep_rows:,} full-sweep rows; "
           f"measured collective bytes = {report.total_collective_bytes:,}")
+    if args.checkpoint_dir:
+        print(f"checkpoint saves: blocked {report.total_save_time_s:.3f}s, "
+              f"completed writes {report.total_save_wall_s:.3f}s "
+              f"({args.checkpoint_dir})")
     for p in report.parts:
         print(f"  part {p.name:>10}: n={p.n_nodes:>9,} m={p.n_edges:>11,} "
               f"iters={p.iterations:>3} comm={p.comm_amount:>10,} "
               f"work={p.gathered_rows:>10,}/{p.full_sweep_rows:<10,} "
               f"adj_density={p.bitmap_density:.3f} "
               f"divide_peak={p.divide_transient_bytes/2**20:.2f}MiB "
-              f"finalized={p.finalized:,}")
+              f"save_s={p.save_time_s:.3f} finalized={p.finalized:,}")
     print(f"kernel launches: fused_sweep={fused_sweep_op.launches - launches0[0]:,} "
           f"hindex={hindex_op.launches - launches0[1]:,}")
     if args.check:

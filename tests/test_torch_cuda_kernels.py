@@ -15,6 +15,8 @@ from repro_torch.core.decompose import decompose
 from repro_torch.graph.build import bucketize
 from repro_torch.graph.generators import rmat
 from repro_torch.graph.oracle import peel_coreness
+from repro_torch.core.distributed import MeshPlan, decompose_distributed
+from repro_torch.kernels.counts import partial_counts_op, partial_counts_plain
 from repro_torch.kernels.fused import fused_sweep_op, fused_sweep_plain
 from repro_torch.kernels.hindex import hindex_op, hindex_plain
 
@@ -135,6 +137,62 @@ def test_decompose_on_card_matches_cpu(dev, op, int16):
     on_card = decompose(bg, op=op, int16=int16, device="cuda")
     assert launches.launches > before
     on_cpu = decompose(bg, op=op, int16=int16, device="cpu")
+    np.testing.assert_array_equal(on_card.coreness, peel_coreness(g))
+    np.testing.assert_array_equal(on_card.coreness, on_cpu.coreness)
+    assert on_card.comm_per_iter == on_cpu.comm_per_iter
+    assert on_card.active_rows_per_iter == on_cpu.active_rows_per_iter
+
+
+@pytest.mark.parametrize("rows,w,cand,fill", [
+    (0, 8, 16, None),          # no rows: no launch
+    (37, 8, 1, None),          # one candidate
+    (300, 4, 1389, None),      # cand far above the width (half-width shard)
+    (8, 65536, 1389, None),    # hub rows, one block each
+    (5, 300, 20000, None),     # cand above one shared-memory window
+    (64, 33, 100, -1),         # every slot a pad
+    (64, 33, 100, "ext"),      # ext above every slot
+    (1000, 17, 64, None),
+])
+def test_counts_kernel_vs_plain(dev, rows, w, cand, fill):
+    rng = np.random.default_rng(rows + w + cand)
+    x = rng.integers(-1, w + 40, size=(rows, w)).astype(np.int32)
+    ext = rng.integers(0, 8, size=rows).astype(np.int32)
+    if fill == -1:
+        x[:] = -1
+    elif fill == "ext":
+        ext[:] = 1_000_000_000  # above every slot; ext + cand stays in int32
+    xt, et = torch.from_numpy(x).to(dev), torch.from_numpy(ext).to(dev)
+    before = partial_counts_op.launches
+    got = partial_counts_op(xt, et, cand=cand)
+    want = partial_counts_plain(xt, et, cand=cand)
+    torch.cuda.synchronize()
+    assert got.shape == (rows, cand)
+    assert torch.equal(got, want), (rows, w, cand, fill)
+    assert partial_counts_op.launches == before + (rows > 0)
+
+
+def test_counts_wrapper_rejects_bad_input(dev):
+    x = torch.zeros(4, 8, dtype=torch.int32, device=dev)
+    ext = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        partial_counts_op(x.t().contiguous().t(), ext, cand=8)
+    with pytest.raises(ValueError, match="device"):
+        partial_counts_op(x, ext.cpu(), cand=8)
+    with pytest.raises(TypeError):
+        partial_counts_op(x.to(torch.int16), ext, cand=8)
+
+
+@pytest.mark.parametrize("use_kernel,wire", [(True, torch.int32), (False, torch.int32),
+                                             (True, torch.int16)])
+def test_distributed_on_card_matches_cpu(dev, use_kernel, wire):
+    g = rmat(11, 8, seed=7)
+    bg = bucketize(g)
+    before = partial_counts_op.launches
+    on_card = decompose_distributed(bg, MeshPlan(), use_kernel=use_kernel,
+                                    wire_dtype=wire, device="cuda")
+    assert (partial_counts_op.launches > before) == use_kernel
+    on_cpu = decompose_distributed(bg, MeshPlan(), use_kernel=use_kernel,
+                                   wire_dtype=wire, device="cpu")
     np.testing.assert_array_equal(on_card.coreness, peel_coreness(g))
     np.testing.assert_array_equal(on_card.coreness, on_cpu.coreness)
     assert on_card.comm_per_iter == on_cpu.comm_per_iter

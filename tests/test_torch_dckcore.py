@@ -85,8 +85,8 @@ def test_dc_kcore_tile_policy_and_part_hook():
 
 
 @pytest.mark.parametrize("option", [
-    dict(checkpoint_dir="unused"), dict(resume=True),
-    dict(sweep_checkpoint_every=2), dict(overlap=True), dict(part_parallel=2),
+    dict(part_parallel_plan=object()), dict(slice_capacity_bytes=1 << 20),
+    dict(overlap=True), dict(part_parallel=2),
     dict(slice_timeout_s=1.0), dict(max_retries=1), dict(fault_plan=object()),
 ])
 def test_later_slice_options_raise(option):
