@@ -16,9 +16,16 @@ and fails (non-zero exit, no result line) without them. Phases:
    sweeps. The fused kernel runs with int32 and int16 estimates (the int16
    states saturate at 2^15 - 1, a valid upper bound the engine could
    resume from) and with the dirty push on and off. Tolerance: exact
-   equality (all values are integers). Then each kernel's device time for
-   one full sweep (one launch per tile), its plain version's time and the
-   least time the card could take for the same work.
+   equality (all values are integers). The fused kernel runs each tile by
+   its own launch plan and, for tiles wider than 1,024, also by one block
+   per row and by the exact search, so every path and the cluster split
+   are compared. Then each kernel's device time for one full sweep (one
+   launch per tile, one memset of the dirty buffer), its plain version's
+   time and the least time the card could take for the same work; the
+   fused kernel's full sweep with the push on and off at both states; its
+   per-width table (each tile alone: push on and off, and the h-index
+   kernel on the same rows gathered beforehand); its wide tiles' planned
+   launch against one block per row and the exact search.
 3. The main path: ``dc_kcore`` on ``rmat(20, 16, seed=0)`` with the rough
    thresholds (64, 16) and monolithic, through the fused engine in int32
    and int16 and through the h-index kernel engine, plus one run of the
@@ -129,7 +136,8 @@ def main() -> int:
     from repro_torch.core.distributed import MeshPlan, make_distributed_decompose
     from repro_torch.kernels import build
     from repro_torch.kernels.counts import partial_counts_op, partial_counts_plain
-    from repro_torch.kernels.fused import fused_sweep_op, fused_sweep_plain
+    from repro_torch.kernels.fused import fused_launch_plan, fused_sweep_op, fused_sweep_plain
+    from repro_torch.kernels.fused.ops import PATHS
     from repro_torch.kernels.hindex import hindex_op, hindex_plain
     from repro_torch.roofline import hw
     from repro_torch.roofline.kcore_model import roofline_time_s, sweep_cost
@@ -181,24 +189,43 @@ def main() -> int:
         s = state if dtype == torch.int32 else state.clamp(max=(1 << 15) - 1)
         return torch.cat([s, torch.full((1,), -1, dtype=torch.int32, device=dev)]).to(dtype)
 
+    def fused_plans(rows, width):
+        """The tile's own launch plan and, for a tile wider than a warp's
+        path, also one block per row and the exact search: every path and
+        cluster of the fused kernel runs at the main path's shapes."""
+        plans = [fused_launch_plan(rows, width, cand)]
+        if width > 1024:
+            plans += [fused_launch_plan(rows, width, cand, path="hist", cluster=1),
+                      fused_launch_plan(rows, width, cand, path="search")]
+        return list(dict.fromkeys(plans))
+
+    def plan_label(plan):
+        """(path, lanes a row) on the group path, else (path, cluster)."""
+        return plan.path, plan.group if plan.path == "group" else plan.cluster
+
     max_err = {"fused": 0, "hindex": 0}
     checks = {"fused": 0, "hindex": 0}
+    plans_hit = set()
     t0 = time.perf_counter()
     for sname, state in states.items():
         for dtype in (torch.int32, torch.int16):
             c = padded(state, dtype)
             for ids, neigh in tiles:
                 for track in (True, False):
-                    got = fused_sweep_op(c, ext_pad, ids, neigh, cand=cand, track_dirty=track)
                     want = fused_sweep_plain(c, ext_pad, ids, neigh, cand=cand, track_dirty=track)
-                    err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
-                    max_err["fused"] = max(max_err["fused"], err)
-                    checks["fused"] += 1
-                    if err:
-                        raise AssertionError(
-                            f"fused kernel != plain: state {sname} {dtype} width "
-                            f"{neigh.shape[1]} rows {neigh.shape[0]} track_dirty {track} "
-                            f"max abs err {err}")
+                    for plan in fused_plans(*neigh.shape):
+                        got = fused_sweep_op(c, ext_pad, ids, neigh, cand=cand,
+                                             track_dirty=track, plan=plan)
+                        err = max(int((a.long() - b.long()).abs().max())
+                                  for a, b in zip(got, want))
+                        max_err["fused"] = max(max_err["fused"], err)
+                        checks["fused"] += 1
+                        plans_hit.add(plan_label(plan))
+                        if err:
+                            raise AssertionError(
+                                f"fused kernel != plain: state {sname} {dtype} width "
+                                f"{neigh.shape[1]} rows {neigh.shape[0]} track_dirty {track} "
+                                f"plan {plan} max abs err {err}")
         c = padded(state, torch.int32)
         for ids, neigh in tiles:
             x = c[neigh]
@@ -210,21 +237,32 @@ def main() -> int:
             if err:
                 raise AssertionError(f"hindex kernel != plain: state {sname} width "
                                      f"{neigh.shape[1]} max abs err {err}")
+    if ({path for path, _ in plans_hit} != set(PATHS)
+            or not any(path == "hist" and k > 1 for path, k in plans_hit)):
+        raise AssertionError(f"the fused comparisons missed a path or the cluster split: "
+                             f"{sorted(plans_hit)}")
     torch.cuda.synchronize()
     log(f"kernels vs plain versions: {checks['fused']} fused and {checks['hindex']} "
-        f"hindex comparisons at all {len(tiles)} tile shapes, states "
+        f"hindex comparisons at all {len(tiles)} tile shapes (fused plans as (path, "
+        f"group or cluster): {sorted(plans_hit)}), states "
         f"{list(states)}: max abs err fused={max_err['fused']} "
         f"hindex={max_err['hindex']} (tolerance 0) in {time.perf_counter() - t0:.1f}s")
 
-    # Timing of one full sweep at the start state (int32, dirty push on).
+    # Timing of one full sweep at the start state (int32, dirty push on). A
+    # real sweep zeroes `dirty` once and then pushes every tile into it
+    # (core/decompose.py), so every timed repetition zeroes it too: pushes
+    # into bytes already 1 from an earlier repetition would time another
+    # kernel.
     c = padded(states["start"], torch.int32)
     dirty = torch.zeros(n + 1, dtype=torch.int8, device=dev)
     gathered = [c[neigh] for _ids, neigh in tiles]
     ext_rows = [ext_pad[ids] for ids, _neigh in tiles]
 
-    def fused_sweep_kernel():
+    def fused_sweep_kernel(state_c=c, track=True):
+        dirty.zero_()
         for ids, neigh in tiles:
-            fused_sweep_op(c, ext_pad, ids, neigh, cand=cand, dirty=dirty)
+            fused_sweep_op(state_c, ext_pad, ids, neigh, cand=cand, track_dirty=track,
+                           dirty=dirty)
 
     def fused_sweep_plain_all():
         d = torch.zeros(n + 1, dtype=torch.int8, device=dev)
@@ -270,6 +308,19 @@ def main() -> int:
     # compares a row), so this is the TPU form's work, not a bound on them.
     fused_model_ms = roofline_time_s(mb, mf, peak_ops=int32_rate) * 1e3
     hindex_model_ms = roofline_time_s(ub, uf, peak_ops=int32_rate) * 1e3
+    # The same full sweep with the push off, and both at the sweep3 state:
+    # their difference is what the push costs in a sweep, where later tiles
+    # find bytes that earlier tiles already set.
+    full_ms = {("start", True): fused_ms}
+    for sname, state in states.items():
+        c_s = padded(state, torch.int32)
+        for track in (True, False):
+            if (sname, track) not in full_ms:
+                full_ms[sname, track] = device_time_ms(
+                    torch, lambda: fused_sweep_kernel(c_s, track), reps=7)
+    log("fused kernel, one full sweep with one memset of dirty (ms): " + ", ".join(
+        f"{sname} push {'on' if track else 'off'} {t:.4f}"
+        for (sname, track), t in full_ms.items()))
     log(f"one full sweep at the start state ({len(tiles)} launches, {rows:,} rows, "
         f"{slots:,} slots): fused kernel {fused_ms:.4f} ms (plain {fused_plain_ms:.2f} ms, "
         f"bound {fused_bound_ms:.4f} ms by {fused_by}); hindex kernel {hindex_ms:.4f} ms "
@@ -278,20 +329,59 @@ def main() -> int:
         f"the TPU form's dense compare (kcore_model.sweep_cost) at the INT32 rate "
         f"would take fused {fused_model_ms:.4f} ms, hindex {hindex_model_ms:.4f} ms")
 
-    per_width = {}
-    for (ids, neigh), x, e in zip(tiles, gathered, ext_rows):
-        w = int(neigh.shape[1])
-        fk = device_time_ms(torch, lambda: fused_sweep_op(
-            c, ext_pad, ids, neigh, cand=cand, dirty=dirty), reps=5)
-        hk = device_time_ms(torch, lambda: hindex_op(x, e, cand=cand), reps=5)
-        acc = per_width.setdefault(w, [0, 0, 0.0, 0.0])
-        acc[0] += 1
-        acc[1] += int(neigh.shape[0])
-        acc[2] += fk
-        acc[3] += hk
-    for w, (nt, nr, fk, hk) in sorted(per_width.items()):
-        log(f"  width {w:>6}: {nt:>2} tile(s) {nr:>8,} rows: fused {fk:.4f} ms, "
-            f"hindex {hk:.4f} ms (one launch per tile, each timed alone)")
+    # Per width class, at both states: the fused kernel with the dirty push
+    # on and off, and the h-index kernel on the same rows gathered
+    # beforehand. Each tile's launch is timed alone, with the memset of
+    # `dirty` in the window as in a sweep; push = on - off, gather = off -
+    # memset - hindex (the random reads of c that the h-index kernel is
+    # spared).
+    memset_ms = device_time_ms(torch, dirty.zero_, reps=7)
+    for sname, state in states.items():
+        cs = padded(state, torch.int32)
+        per_width = {}
+        full = {True: 0.0, False: 0.0}
+        for ids, neigh in tiles:
+            w = int(neigh.shape[1])
+            x, e = cs[neigh], ext_pad[ids]
+            t = {}
+            for track in (True, False):
+                t[track] = device_time_ms(torch, lambda: (dirty.zero_(), fused_sweep_op(
+                    cs, ext_pad, ids, neigh, cand=cand, track_dirty=track, dirty=dirty)),
+                    reps=5)
+                full[track] += t[track]
+            hk = device_time_ms(torch, lambda: hindex_op(x, e, cand=cand), reps=5)
+            acc = per_width.setdefault(w, [0, 0, 0.0, 0.0, 0.0])
+            acc[0] += 1
+            acc[1] += int(neigh.shape[0])
+            acc[2] += t[True]
+            acc[3] += t[False]
+            acc[4] += hk
+        log(f"fused kernel per width class, state {sname} (int32; each tile's launch "
+            f"timed alone with a {memset_ms:.4f} ms memset of dirty in the window; "
+            f"push = on - off, gather = off - memset - hindex): sum over tiles push on "
+            f"{full[True]:.4f} ms, push off {full[False]:.4f} ms")
+        for w, (nt, nr, on, off, hk) in sorted(per_width.items()):
+            log(f"  fused {sname:>6} width {w:>6}: {nt:>2} tile(s) {nr:>8,} rows: push on "
+                f"{on:.4f} ms, push off {off:.4f} ms, hindex {hk:.4f} ms; push "
+                f"{on - off:.4f} ms, gather {off - nt * memset_ms - hk:.4f} ms")
+
+    # The wide tiles at the start state (int32, push on, memset in the
+    # window): the planned launch against one block per row (the plan splits
+    # a row over a cluster only where that is faster) and the exact search
+    # (the earlier one-block binary search, with this kernel's push).
+    for ids, neigh in tiles:
+        rows_t, w = (int(v) for v in neigh.shape)
+        if w <= 1024:
+            continue
+        times = []
+        for plan in [fused_launch_plan(rows_t, w, cand),
+                     fused_launch_plan(rows_t, w, cand, path="hist", cluster=1),
+                     fused_launch_plan(rows_t, w, cand, path="search")]:
+            times.append(device_time_ms(torch, lambda: (dirty.zero_(), fused_sweep_op(
+                c, ext_pad, ids, neigh, cand=cand, dirty=dirty, plan=plan)), reps=5))
+        log(f"  fused wide tile width {w:>6} rows {rows_t:>5}: planned "
+            f"({plan_label(fused_launch_plan(rows_t, w, cand))}) {times[0]:.4f} ms, one "
+            f"block per row {times[1]:.4f} ms, exact search {times[2]:.4f} ms")
 
     # ---------------- phase 3: the main path ---------------- #
     t0 = time.perf_counter()

@@ -11,27 +11,42 @@
 // est goes to its own output, never into c, so the reads of one launch are
 // Jacobi, as in the reference (it reads c before it scatters).
 //
-// What bounds it on the H100: bytes, and above all the gather. The tile
-// (4 * width bytes a row) is read once and coalesced, but each neighbour
-// estimate is a random 2- or 4-byte read of c, which costs a 32-byte
-// sector whenever it misses L2. The int32 compares (about
-// width * log2(cand) a row) are far below the INT32 rate.
+// What bounds it on the H100: bytes in principle (the tile's ids read once,
+// c, ext and the outputs), about 0.06 ms for a full sweep of rmat(20, 16).
+// In practice two things the bound does not count: the random 2- or 4-byte
+// reads of c (each costs an L2 sector; c and dirty both fit in the 50 MB
+// L2), and the push, whose byte stores pile onto the hub nodes' addresses,
+// which sit in most rows' lists. The h-index arithmetic is far below the
+// INT32 rate on every path.
 //
-// What the design does about it: one launch does everything the reference
-// does in separate dispatches, with no gathered [rows, width] matrix in
-// HBM; an int16 c halves the gathered bytes and is widened in registers;
-// rows are dispatched by width class (thread / warp / block per row, see
-// hindex_common.cuh) so hub rows do not stall the narrow ones. Rows up to
-// width 1024 are read and gathered once and keep their neighbour ids for
-// the push in registers. Rows wider than 1024 (the block path) are not:
-// they re-read the row and re-gather c on each of the ~log2(cand) search
-// passes and read the neighbour ids again for the push, from L1/L2 while
-// the row fits there. A shared-memory histogram for these rows is queued
-// in ROADMAP.md. The dirty push is an idempotent byte store
-// of 1, so it needs no atomics; the caller zeroes `dirty` before the first
-// launch of a sweep (CUDA blocks have no order in which one could zero it),
-// and pushes to the sentinel slot n are skipped (that slot is never read).
-#include "hindex_common.cuh"
+// What the design does about it, by width class (one launch per bucket;
+// the launch plan -- path, block size, grid, cluster, shared memory -- is
+// computed in Python, kernels/fused/ops.py::fused_launch_plan, and this
+// file only launches it):
+//   * width <= 16: a group of 8 or 16 lanes per row, one slot per lane
+//     (hist_common.cuh row_per_group), so loads are contiguous across a
+//     warp and a 10 k-row tile spreads over every SM;
+//   * width <= 1024: a warp per row, values in registers, binary search
+//     (hindex_common.cuh row_per_warp);
+//   * wider: a shared-memory histogram per row, each slot read and
+//     gathered once (hist_common.cuh row_per_cluster), the row split over a
+//     thread-block cluster when the tile has too few rows to fill the card;
+//     a bound whose bins exceed shared memory takes the exact binary search
+//     of hindex_common.cuh row_per_block instead.
+// On every path a row's ids are read once for the h-index (and once more
+// by a changed wide row's push), an int16 c halves the gathered bytes and
+// is widened in registers, and the push tests before it sets: a byte that
+// already reads 1 is not stored again, which turns most of the stores to
+// hub addresses into cached reads. A stale 0 costs only one more idempotent
+// store of 1, so no atomics or fences are needed. It pays across a sweep,
+// whose later buckets find most bytes already set: in a full sweep of
+// rmat(20, 16) on an H100 it cut the push from 0.90 to 0.15 ms, though a
+// bucket pushing into a freshly zeroed buffer alone runs slower with it
+// than with plain stores (chip_smoke.py prints both). The caller zeroes `dirty`
+// before the first launch of a sweep (CUDA blocks have no order in which one
+// could zero it), and pushes to the sentinel slot n are skipped (that slot
+// is never read).
+#include "hist_common.cuh"
 
 namespace {
 
@@ -76,19 +91,92 @@ struct FusedPolicy {
     }
     return ch && track_dirty;
   }
+  // Test before set: a plain load (never stale as 1 -- bytes only go from 0
+  // to 1 within a sweep), and a store only where it read 0.
   __device__ __forceinline__ void push(int nb) const {
-    if (nb != sentinel) dirty[nb] = 1;
+    if (nb != sentinel && dirty[nb] == 0) dirty[nb] = 1;
   }
 };
 
+// Launch plan paths; the order of ops.py's PATHS.
+enum Path { kGroup = 0, kWarp = 1, kHist = 2, kSearch = 3 };
+
+template <class P>
+void launch_warp(const P& p, int rows, int width, int bound, int blocks, int threads,
+                 cudaStream_t s) {
+  const int vpt = (width + 31) / 32;
+  if (vpt <= 1) {
+    kcore::row_per_warp<1, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
+  } else if (vpt <= 2) {
+    kcore::row_per_warp<2, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
+  } else if (vpt <= 4) {
+    kcore::row_per_warp<4, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
+  } else if (vpt <= 8) {
+    kcore::row_per_warp<8, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
+  } else if (vpt <= 16) {
+    kcore::row_per_warp<16, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
+  } else {
+    kcore::row_per_warp<32, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
+  }
+}
+
+template <class P>
+cudaError_t launch_hist(const P& p, int rows, int width, int bound, int blocks,
+                        int threads, int cluster, int smem_bytes, cudaStream_t s) {
+  // Above 48 KB a kernel takes dynamic shared memory only after opting in
+  // (only a candidate window above ~12 k bins gets there).
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kcore::row_per_cluster<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kcore::row_per_cluster<P>, p, rows, width, bound);
+}
+
 template <typename T>
-void launch(const void* c, const int32_t* ext_pad, const int32_t* ids,
-            const int32_t* neigh, int32_t* est, int32_t* changed, int8_t* dirty,
-            int rows, int width, int bound, int sentinel, bool track_dirty,
-            cudaStream_t stream) {
-  const FusedPolicy<T> p{static_cast<const T*>(c), ext_pad, ids, neigh, est,
-                         changed, dirty, width, sentinel, track_dirty};
-  kcore::dispatch(p, rows, width, bound, stream);
+cudaError_t launch(const void* c, const int32_t* ext_pad, const int32_t* ids,
+                   const int32_t* neigh, int32_t* est, int32_t* changed, int8_t* dirty,
+                   int rows, int width, int bound, int sentinel, bool track_dirty,
+                   int path, int threads, int blocks, int cluster, int smem_bytes,
+                   int group, cudaStream_t s) {
+  using P = FusedPolicy<T>;
+  const P p{static_cast<const T*>(c), ext_pad, ids, neigh, est,
+            changed, dirty, width, sentinel, track_dirty};
+  switch (path) {
+    case kGroup:
+      if (group == 8 && width <= 8) {
+        kcore::row_per_group<8, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
+      } else if (group == 16 && width <= 16) {
+        kcore::row_per_group<16, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
+      } else {
+        return cudaErrorInvalidValue;
+      }
+      return cudaSuccess;
+    case kWarp:
+      if (width > kcore::kWarpMaxWidth) return cudaErrorInvalidValue;
+      launch_warp(p, rows, width, bound, blocks, threads, s);
+      return cudaSuccess;
+    case kHist:
+      if (smem_bytes < (bound + 1 + kcore::kHistScratch) * 4) return cudaErrorInvalidValue;
+      return launch_hist(p, rows, width, bound, blocks, threads, cluster, smem_bytes, s);
+    case kSearch:
+      kcore::row_per_block<P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
+      return cudaSuccess;
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -96,21 +184,26 @@ void launch(const void* c, const int32_t* ext_pad, const int32_t* ids,
 // c [n+1] int16 (c_bytes 2) or int32 (c_bytes 4), slot n = -1;
 // ext_pad [n+1] int32; ids [rows] int32; neigh [rows, width] int32 (pads
 // = n); outputs est, changed [rows] int32; dirty [n+1] int8 (stored into,
-// not zeroed). Launches on `stream`; returns cudaGetLastError() after it.
+// not zeroed). path / threads / blocks / cluster / smem_bytes / group are
+// the launch plan of ops.py::fused_launch_plan for these shapes. Launches
+// on `stream`; returns the launch's error, else cudaGetLastError() after it.
 extern "C" int kcore_fused_sweep(const void* c, int c_bytes, const int32_t* ext_pad,
                                  const int32_t* ids, const int32_t* neigh,
                                  int32_t* est, int32_t* changed, int8_t* dirty,
                                  int n, int rows, int width, int cand,
-                                 int track_dirty, void* stream) {
+                                 int track_dirty, int path, int threads, int blocks,
+                                 int cluster, int smem_bytes, int group, void* stream) {
   if (rows <= 0 || width <= 0) return 0;
   const int bound = min(max(cand, 1), width);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c_bytes == 2) {
-    launch<int16_t>(c, ext_pad, ids, neigh, est, changed, dirty, rows, width,
-                    bound, n, track_dirty != 0, s);
-  } else {
-    launch<int32_t>(c, ext_pad, ids, neigh, est, changed, dirty, rows, width,
-                    bound, n, track_dirty != 0, s);
-  }
+  const cudaError_t err =
+      (c_bytes == 2)
+          ? launch<int16_t>(c, ext_pad, ids, neigh, est, changed, dirty, rows, width, bound,
+                            n, track_dirty != 0, path, threads, blocks, cluster,
+                            smem_bytes, group, s)
+          : launch<int32_t>(c, ext_pad, ids, neigh, est, changed, dirty, rows, width, bound,
+                            n, track_dirty != 0, path, threads, blocks, cluster,
+                            smem_bytes, group, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,8 @@
 // Shared device code of the two k-core sweep kernels (hindex.cu, fused.cu).
+// hindex.cu launches every row through dispatch() below; fused.cu takes
+// row_per_warp (its warp path) and row_per_block (its exact search for a
+// bound whose bins exceed shared memory), and its narrow and wide rows from
+// hist_common.cuh.
 //
 // Both kernels compute, per row r of a padded [rows, width] neighbour tile,
 //

@@ -17,7 +17,8 @@ from repro_torch.graph.generators import rmat
 from repro_torch.graph.oracle import peel_coreness
 from repro_torch.core.distributed import MeshPlan, decompose_distributed
 from repro_torch.kernels.counts import partial_counts_op, partial_counts_plain
-from repro_torch.kernels.fused import fused_sweep_op, fused_sweep_plain
+from repro_torch.kernels.fused import fused_launch_plan, fused_sweep_op, fused_sweep_plain
+from repro_torch.kernels.fused.ops import MAX_BINS
 from repro_torch.kernels.hindex import hindex_op, hindex_plain
 
 pytestmark = pytest.mark.cuda
@@ -104,6 +105,128 @@ def test_fused_dirty_buffer_accumulates(dev):
     assert int(dirty[-1]) == 0  # the sentinel slot is never pushed
 
 
+def _fused_inputs(rng, dev, rows, w, dtype, hub=False):
+    """A valid state (estimates >= ext + any h-index of a width-w row) and a
+    [rows, w] bucket over n nodes; ``hub`` points every real slot at one
+    node, so every slot of a row lands in one histogram bin and every push
+    of the launch on one dirty byte."""
+    n = max(3 * w + 50, rows + 1)
+    ext = np.concatenate([rng.integers(0, 4, n), [0]]).astype(np.int32)
+    c = torch.from_numpy(_valid_state(rng, n, w, ext)).to(dtype).to(dev)
+    ids_np = rng.permutation(n)[:rows].astype(np.int32)
+    ids_np[rng.random(rows) < 0.1] = n  # sentinel pad rows
+    targets = np.full((rows, w), 7) if hub else rng.integers(0, n, (rows, w))
+    neigh = np.where(rng.random((rows, w)) < 0.2, n, targets).astype(np.int32)
+    return (c, torch.from_numpy(ext).to(dev), torch.from_numpy(ids_np).to(dev),
+            torch.from_numpy(neigh).to(dev))
+
+
+def _check_fused_sweeps(c, ext, ids, neigh, cand, track_dirty, plan=None, sweeps=2):
+    """Kernel == plain version, exactly, over a few sweeps of one bucket
+    (the state the engine would reach after each)."""
+    for sweep in range(sweeps):
+        got = fused_sweep_op(c, ext, ids, neigh, cand=cand, track_dirty=track_dirty, plan=plan)
+        want = fused_sweep_plain(c, ext, ids, neigh, cand=cand, track_dirty=track_dirty)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (neigh.shape, cand, track_dirty, plan, sweep)
+        c[ids.long()] = got[0].to(c.dtype)
+        c[-1] = -1
+
+
+# The sub-warp path (8 or 16 lanes a row, 16 or 8 rows a block): row counts
+# that leave a ragged last block and a ragged last warp.
+@pytest.mark.parametrize("w", [1, 5, 8, 16])
+@pytest.mark.parametrize("rows", [1, 37, 1001])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
+@pytest.mark.parametrize("track_dirty", [True, False])
+def test_fused_group_path(dev, w, rows, dtype, track_dirty):
+    rng = np.random.default_rng(w * 10_000 + rows)
+    c, ext, ids, neigh = _fused_inputs(rng, dev, rows, w, dtype)
+    assert fused_launch_plan(rows, w, w).path == "group"
+    for cand in (1, 3, w, 1389):
+        _check_fused_sweeps(c.clone(), ext, ids, neigh, cand, track_dirty)
+
+
+# Hub widths with few rows: each row split over a thread-block cluster.
+@pytest.mark.parametrize("w", [16384, 32768, 65536])
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
+@pytest.mark.parametrize("track_dirty", [True, False])
+def test_fused_cluster_split(dev, w, rows, dtype, track_dirty):
+    rng = np.random.default_rng(w + rows)
+    c, ext, ids, neigh = _fused_inputs(rng, dev, rows, w, dtype)
+    plan = fused_launch_plan(rows, w, 1389)
+    assert plan.path == "hist" and plan.cluster == 8
+    _check_fused_sweeps(c, ext, ids, neigh, 1389, track_dirty)
+
+
+@pytest.mark.parametrize("cand,path", [
+    (MAX_BINS - 1, "hist"),    # the most bins shared memory holds: 224 KB a block
+    (MAX_BINS, "search"),      # one bin more: the exact search path
+    (65536, "search"),
+])
+def test_fused_bin_cap(dev, cand, path):
+    rng = np.random.default_rng(cand)
+    # Estimates are ext + 65536 + a few, so the bins up to the cap are reached.
+    c, ext, ids, neigh = _fused_inputs(rng, dev, 3, 65536, torch.int32)
+    assert fused_launch_plan(3, 65536, cand).path == path
+    _check_fused_sweeps(c, ext, ids, neigh, cand, True)
+
+
+# Every path and cluster forced onto widths it covers, down to a few slots
+# a block.
+@pytest.mark.parametrize("w,path,cluster", [
+    (8, "warp", None), (8, "hist", 1), (8, "hist", 4), (16, "search", None),
+    (100, "hist", 1), (100, "hist", 2), (1000, "search", None), (1025, "hist", 8),
+    (2048, "search", None), (4096, "hist", 1), (16384, "hist", 1), (65536, "hist", 1),
+])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
+def test_fused_forced_plans(dev, w, path, cluster, dtype):
+    rng = np.random.default_rng(w)
+    rows = min(_rows_for(w), 64)
+    c, ext, ids, neigh = _fused_inputs(rng, dev, rows, w, dtype)
+    for cand in (1, min(w, 40), 1389):
+        plan = fused_launch_plan(rows, w, cand, path=path, cluster=cluster)
+        _check_fused_sweeps(c.clone(), ext, ids, neigh, cand, True, plan=plan)
+
+
+# Every neighbour one node: one histogram bin takes every slot of a row,
+# and every push of the launch hits one byte.
+@pytest.mark.parametrize("w", [8, 16, 64, 1024, 4096, 65536])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
+@pytest.mark.parametrize("track_dirty", [True, False])
+def test_fused_one_hub_neighbour(dev, w, dtype, track_dirty):
+    rng = np.random.default_rng(w + 1)
+    rows = min(_rows_for(w) * 4, 1000)
+    c, ext, ids, neigh = _fused_inputs(rng, dev, rows, w, dtype, hub=True)
+    for cand in (1, min(w, 1389)):
+        _check_fused_sweeps(c.clone(), ext, ids, neigh, cand, track_dirty)
+
+
+def test_fused_dirty_buffer_shared_across_paths(dev):
+    # One buffer for launches of every path, as a sweep passes it to all its
+    # buckets: a byte set by one launch is tested (and not stored) by the next.
+    rng = np.random.default_rng(1)
+    n = 40_000
+    ext = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    c = torch.from_numpy(_valid_state(rng, n, 65536, ext.cpu().numpy())).to(torch.int32).to(dev)
+    dirty = torch.zeros(n + 1, dtype=torch.int8, device=dev)
+    ref = torch.zeros(n + 1, dtype=torch.int8, device=dev)
+    paths = set()
+    for rows, w in [(300, 8), (100, 16), (64, 256), (20, 2048), (3, 32768), (2, 65536)]:
+        ids = torch.from_numpy(rng.permutation(n)[:rows].astype(np.int32)).to(dev)
+        neigh = torch.from_numpy(rng.integers(0, n + 1, (rows, w)).astype(np.int32)).to(dev)
+        _, _, out = fused_sweep_op(c, ext, ids, neigh, cand=1389, dirty=dirty)
+        assert out is dirty
+        fused_sweep_plain(c, ext, ids, neigh, cand=1389, dirty=ref)
+        paths.add(fused_launch_plan(rows, w, 1389).path)
+    torch.cuda.synchronize()
+    assert paths == {"group", "warp", "hist"}
+    assert torch.equal(dirty, ref)
+    assert int(dirty[-1]) == 0
+
+
 def test_wrappers_count_launches_and_reject_bad_input(dev):
     x = torch.full((4, 8), 3, dtype=torch.int32, device=dev)
     ext = torch.zeros(4, dtype=torch.int32, device=dev)
@@ -126,6 +249,10 @@ def test_wrappers_count_launches_and_reject_bad_input(dev):
     assert fused_sweep_op.launches == before + 1
     with pytest.raises(TypeError):
         fused_sweep_op(c.to(torch.int64), ext_pad, ids, neigh, cand=8)
+    with pytest.raises(ValueError, match="launch plan"):
+        fused_sweep_op(c, ext_pad, ids, neigh, cand=8,
+                       plan=fused_launch_plan(4, 8, 8)._replace(blocks=2))
+    assert fused_sweep_op.launches == before + 1
 
 
 @pytest.mark.parametrize("op,int16", [("kernel", False), ("fused", False), ("fused", True)])
