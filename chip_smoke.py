@@ -16,16 +16,17 @@ and fails (non-zero exit, no result line) without them. Phases:
    sweeps. The fused kernel runs with int32 and int16 estimates (the int16
    states saturate at 2^15 - 1, a valid upper bound the engine could
    resume from) and with the dirty push on and off. Tolerance: exact
-   equality (all values are integers). The fused kernel runs each tile by
-   its own launch plan and, for tiles wider than 1,024, also by one block
-   per row and by the exact search, so every path and the cluster split
-   are compared. Then each kernel's device time for one full sweep (one
-   launch per tile, one memset of the dirty buffer), its plain version's
-   time and the least time the card could take for the same work; the
-   fused kernel's full sweep with the push on and off at both states; its
-   per-width table (each tile alone: push on and off, and the h-index
-   kernel on the same rows gathered beforehand); its wide tiles' planned
-   launch against one block per row and the exact search.
+   equality (all values are integers). The fused and h-index kernels (one
+   launch plan) run each tile by its own plan and, for tiles wider than
+   1,024, also by one block per row and by the exact search, so every path
+   and the cluster split are compared. Then each kernel's device time for
+   one full sweep (one launch per tile, one memset of the dirty buffer),
+   its plain version's time and the least time the card could take for
+   the same work; the fused kernel's full sweep with the push on and off
+   at both states; its per-width table (each tile alone: push on and off,
+   and the h-index kernel on the same rows gathered beforehand); the wide
+   tiles' planned launch against one block per row and the exact search,
+   for both kernels.
 3. The main path: ``dc_kcore`` on ``rmat(20, 16, seed=0)`` with the rough
    thresholds (64, 16) and monolithic, through the fused engine in int32
    and int16 and through the h-index kernel engine, plus one run of the
@@ -36,9 +37,11 @@ and fails (non-zero exit, no result line) without them. Phases:
 4. The partial-counts kernel of the distributed engine against its plain
    version at the same 57 tile shapes and two states, with each tile's
    neighbour slots whole (one slot shard) and split in two halves (two
-   slot shards, whose counts must also add up to the whole's); exact
-   equality. Then its device time for one full sweep, per width class,
-   its plain version's time and its bound.
+   slot shards, whose counts must also add up to the whole's), by each
+   shard's own launch plan and every other path that covers it (step,
+   warp, one block a row, the cluster split); exact equality. Then its
+   device time for one full sweep, per width class, its plain version's
+   time and its bound.
 5. The distributed main path on one rank: ``dc_kcore`` through
    ``make_distributed_decompose`` on a 1x1 plan with the counts kernel, at
    ``rmat(20, 16, seed=0)`` with the thresholds (64, 16) and monolithic,
@@ -135,7 +138,9 @@ def main() -> int:
     from repro_torch.graph.oracle import peel_coreness
     from repro_torch.core.distributed import MeshPlan, make_distributed_decompose
     from repro_torch.kernels import build
-    from repro_torch.kernels.counts import partial_counts_op, partial_counts_plain
+    from repro_torch.kernels.counts import (counts_launch_plan, partial_counts_op,
+                                            partial_counts_plain)
+    from repro_torch.kernels.counts.ops import COUNTS_PATHS
     from repro_torch.kernels.fused import fused_launch_plan, fused_sweep_op, fused_sweep_plain
     from repro_torch.kernels.fused.ops import PATHS
     from repro_torch.kernels.hindex import hindex_op, hindex_plain
@@ -192,7 +197,8 @@ def main() -> int:
     def fused_plans(rows, width):
         """The tile's own launch plan and, for a tile wider than a warp's
         path, also one block per row and the exact search: every path and
-        cluster of the fused kernel runs at the main path's shapes."""
+        cluster of the fused (and the h-index) kernel runs at the main
+        path's shapes."""
         plans = [fused_launch_plan(rows, width, cand)]
         if width > 1024:
             plans += [fused_launch_plan(rows, width, cand, path="hist", cluster=1),
@@ -206,6 +212,7 @@ def main() -> int:
     max_err = {"fused": 0, "hindex": 0}
     checks = {"fused": 0, "hindex": 0}
     plans_hit = set()
+    hindex_plans_hit = set()
     t0 = time.perf_counter()
     for sname, state in states.items():
         for dtype in (torch.int32, torch.int16):
@@ -226,25 +233,30 @@ def main() -> int:
                                 f"fused kernel != plain: state {sname} {dtype} width "
                                 f"{neigh.shape[1]} rows {neigh.shape[0]} track_dirty {track} "
                                 f"plan {plan} max abs err {err}")
+        # The h-index kernel launches by the fused kernel's plan: the same
+        # plans, every path and the cluster split.
         c = padded(state, torch.int32)
         for ids, neigh in tiles:
             x = c[neigh]
-            got = hindex_op(x, ext_pad[ids], cand=cand)
             want = hindex_plain(x, ext_pad[ids], cand=cand)
-            err = int((got.long() - want.long()).abs().max())
-            max_err["hindex"] = max(max_err["hindex"], err)
-            checks["hindex"] += 1
-            if err:
-                raise AssertionError(f"hindex kernel != plain: state {sname} width "
-                                     f"{neigh.shape[1]} max abs err {err}")
-    if ({path for path, _ in plans_hit} != set(PATHS)
-            or not any(path == "hist" and k > 1 for path, k in plans_hit)):
-        raise AssertionError(f"the fused comparisons missed a path or the cluster split: "
-                             f"{sorted(plans_hit)}")
+            for plan in fused_plans(*neigh.shape):
+                got = hindex_op(x, ext_pad[ids], cand=cand, plan=plan)
+                err = int((got.long() - want.long()).abs().max())
+                max_err["hindex"] = max(max_err["hindex"], err)
+                checks["hindex"] += 1
+                hindex_plans_hit.add(plan_label(plan))
+                if err:
+                    raise AssertionError(f"hindex kernel != plain: state {sname} width "
+                                         f"{neigh.shape[1]} plan {plan} max abs err {err}")
+    for name, hit in (("fused", plans_hit), ("hindex", hindex_plans_hit)):
+        if ({path for path, _ in hit} != set(PATHS)
+                or not any(path == "hist" and k > 1 for path, k in hit)):
+            raise AssertionError(f"the {name} comparisons missed a path or the cluster "
+                                 f"split: {sorted(hit)}")
     torch.cuda.synchronize()
     log(f"kernels vs plain versions: {checks['fused']} fused and {checks['hindex']} "
-        f"hindex comparisons at all {len(tiles)} tile shapes (fused plans as (path, "
-        f"group or cluster): {sorted(plans_hit)}), states "
+        f"hindex comparisons at all {len(tiles)} tile shapes (plans as (path, group or "
+        f"cluster): fused {sorted(plans_hit)}, hindex {sorted(hindex_plans_hit)}), states "
         f"{list(states)}: max abs err fused={max_err['fused']} "
         f"hindex={max_err['hindex']} (tolerance 0) in {time.perf_counter() - t0:.1f}s")
 
@@ -333,8 +345,10 @@ def main() -> int:
     # on and off, and the h-index kernel on the same rows gathered
     # beforehand. Each tile's launch is timed alone, with the memset of
     # `dirty` in the window as in a sweep; push = on - off, gather = off -
-    # memset - hindex (the random reads of c that the h-index kernel is
-    # spared).
+    # (memset + hindex in one window: the random reads of c that the h-index
+    # kernel is spared). A window's fixed cost (a few us) is most of a
+    # narrow tile's time alone, so the h-index kernel is also timed with the
+    # class's tiles back to back, as in a sweep.
     memset_ms = device_time_ms(torch, dirty.zero_, reps=7)
     for sname, state in states.items():
         cs = padded(state, torch.int32)
@@ -350,38 +364,50 @@ def main() -> int:
                     reps=5)
                 full[track] += t[track]
             hk = device_time_ms(torch, lambda: hindex_op(x, e, cand=cand), reps=5)
-            acc = per_width.setdefault(w, [0, 0, 0.0, 0.0, 0.0])
+            hkm = device_time_ms(torch, lambda: (dirty.zero_(), hindex_op(x, e, cand=cand)),
+                                 reps=5)
+            acc = per_width.setdefault(w, [0, 0, 0.0, 0.0, 0.0, 0.0, []])
             acc[0] += 1
             acc[1] += int(neigh.shape[0])
             acc[2] += t[True]
             acc[3] += t[False]
             acc[4] += hk
+            acc[5] += hkm
+            acc[6].append((x, e))
         log(f"fused kernel per width class, state {sname} (int32; each tile's launch "
             f"timed alone with a {memset_ms:.4f} ms memset of dirty in the window; "
-            f"push = on - off, gather = off - memset - hindex): sum over tiles push on "
+            f"push = on - off, gather = off - (memset + hindex)): sum over tiles push on "
             f"{full[True]:.4f} ms, push off {full[False]:.4f} ms")
-        for w, (nt, nr, on, off, hk) in sorted(per_width.items()):
+        for w, (nt, nr, on, off, hk, hkm, xs) in sorted(per_width.items()):
+            row = device_time_ms(torch, lambda: [hindex_op(x, e, cand=cand) for x, e in xs],
+                                 reps=5)
             log(f"  fused {sname:>6} width {w:>6}: {nt:>2} tile(s) {nr:>8,} rows: push on "
-                f"{on:.4f} ms, push off {off:.4f} ms, hindex {hk:.4f} ms; push "
-                f"{on - off:.4f} ms, gather {off - nt * memset_ms - hk:.4f} ms")
+                f"{on:.4f} ms, push off {off:.4f} ms, hindex {hk:.4f} ms alone, {row:.4f} ms "
+                f"in a row; push {on - off:.4f} ms, gather {off - hkm:.4f} ms")
 
     # The wide tiles at the start state (int32, push on, memset in the
     # window): the planned launch against one block per row (the plan splits
     # a row over a cluster only where that is faster) and the exact search
-    # (the earlier one-block binary search, with this kernel's push).
-    for ids, neigh in tiles:
+    # (the earlier one-block binary search, with this kernel's push); the
+    # same three for the h-index kernel on the rows gathered beforehand.
+    for (ids, neigh), x, e in zip(tiles, gathered, ext_rows):
         rows_t, w = (int(v) for v in neigh.shape)
         if w <= 1024:
             continue
-        times = []
-        for plan in [fused_launch_plan(rows_t, w, cand),
-                     fused_launch_plan(rows_t, w, cand, path="hist", cluster=1),
-                     fused_launch_plan(rows_t, w, cand, path="search")]:
-            times.append(device_time_ms(torch, lambda: (dirty.zero_(), fused_sweep_op(
-                c, ext_pad, ids, neigh, cand=cand, dirty=dirty, plan=plan)), reps=5))
+        wide_plans = [fused_launch_plan(rows_t, w, cand),
+                      fused_launch_plan(rows_t, w, cand, path="hist", cluster=1),
+                      fused_launch_plan(rows_t, w, cand, path="search")]
+        times = [device_time_ms(torch, lambda: (dirty.zero_(), fused_sweep_op(
+            c, ext_pad, ids, neigh, cand=cand, dirty=dirty, plan=plan)), reps=5)
+            for plan in wide_plans]
+        htimes = [device_time_ms(torch, lambda: hindex_op(x, e, cand=cand, plan=plan), reps=5)
+                  for plan in wide_plans]
         log(f"  fused wide tile width {w:>6} rows {rows_t:>5}: planned "
-            f"({plan_label(fused_launch_plan(rows_t, w, cand))}) {times[0]:.4f} ms, one "
+            f"({plan_label(wide_plans[0])}) {times[0]:.4f} ms, one "
             f"block per row {times[1]:.4f} ms, exact search {times[2]:.4f} ms")
+        log(f"  hindex wide tile width {w:>6} rows {rows_t:>5}: planned "
+            f"({plan_label(wide_plans[0])}) {htimes[0]:.4f} ms, one "
+            f"block per row {htimes[1]:.4f} ms, exact search {htimes[2]:.4f} ms")
 
     # ---------------- phase 3: the main path ---------------- #
     t0 = time.perf_counter()
@@ -452,8 +478,21 @@ def main() -> int:
         w = x.shape[1] // k
         return [x[:, j * w:(j + 1) * w].contiguous() for j in range(k)]
 
+    def counts_plans(rows, w):
+        """The shard's own launch plan and every other path that covers it:
+        the step and warp paths, and the histogram with one block a row and
+        with its planned cluster."""
+        plans = [counts_launch_plan(rows, w, cand)]
+        for path, cluster in (("step", None), ("warp", None), ("hist", 1), ("hist", None)):
+            try:
+                plans.append(counts_launch_plan(rows, w, cand, path=path, cluster=cluster))
+            except ValueError:
+                pass
+        return list(dict.fromkeys(plans))
+
     max_err["counts"] = 0
     checks["counts"] = 0
+    counts_plans_hit = set()
     t0 = time.perf_counter()
     for sname, state in states.items():
         c = padded(state, torch.int32)
@@ -463,26 +502,35 @@ def main() -> int:
             for k in (1, 2):
                 total = None
                 for xs in slot_shards(x, k):
-                    got = partial_counts_op(xs, e, cand=cand)
                     want = partial_counts_plain(xs, e, cand=cand)
-                    err = int((got.long() - want.long()).abs().max())
-                    max_err["counts"] = max(max_err["counts"], err)
-                    checks["counts"] += 1
-                    if err:
-                        raise AssertionError(
-                            f"counts kernel != plain: state {sname} width {neigh.shape[1]} "
-                            f"slot shards {k} max abs err {err}")
-                    total = got if total is None else total + got
+                    planned = None
+                    for plan in counts_plans(*xs.shape):
+                        got = partial_counts_op(xs, e, cand=cand, plan=plan)
+                        planned = got if planned is None else planned
+                        err = int((got.long() - want.long()).abs().max())
+                        max_err["counts"] = max(max_err["counts"], err)
+                        checks["counts"] += 1
+                        counts_plans_hit.add((plan.path, plan.cluster))
+                        if err:
+                            raise AssertionError(
+                                f"counts kernel != plain: state {sname} width "
+                                f"{neigh.shape[1]} slot shards {k} plan {plan} max abs "
+                                f"err {err}")
+                    total = planned if total is None else total + planned
                 if whole is None:
                     whole = total
                 elif not torch.equal(total, whole):
                     raise AssertionError(f"two slot shards' counts do not add up to the "
                                          f"whole row's: state {sname} width {neigh.shape[1]}")
+    if ({path for path, _ in counts_plans_hit} != set(COUNTS_PATHS)
+            or not any(path == "hist" and k > 1 for path, k in counts_plans_hit)):
+        raise AssertionError(f"the counts comparisons missed a path or the cluster split: "
+                             f"{sorted(counts_plans_hit)}")
     torch.cuda.synchronize()
     log(f"counts kernel vs plain version: {checks['counts']} comparisons at all "
         f"{len(tiles)} tile shapes, one and two slot shards, states {list(states)}, "
-        f"cand={cand}: max abs err {max_err['counts']} (tolerance 0) in "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"cand={cand}, plans as (path, cluster) {sorted(counts_plans_hit)}: max abs err "
+        f"{max_err['counts']} (tolerance 0) in {time.perf_counter() - t0:.1f}s")
 
     halves = [slot_shards(x, 2) for x in gathered]
 
@@ -517,21 +565,27 @@ def main() -> int:
         f"shards ({2 * len(tiles)} launches): {counts_half_ms:.4f} ms (bound "
         f"{counts_half_bound_ms:.4f} ms); no single PyTorch call computes suffix counts, "
         f"so there is no library time")
-    per_width_counts = {}
+    per_width_counts = {}  # as the h-index kernel's: each tile alone, then the class in a row
     for (ids, neigh), x, e, hs in zip(tiles, gathered, ext_rows, halves):
         w = int(neigh.shape[1])
         k1 = device_time_ms(torch, lambda: partial_counts_op(x, e, cand=cand), reps=5)
         k2 = device_time_ms(torch, lambda: [partial_counts_op(h, e, cand=cand) for h in hs],
                             reps=5)
-        acc = per_width_counts.setdefault(w, [0, 0, 0.0, 0.0, 0.0])
+        acc = per_width_counts.setdefault(w, [0, 0, 0.0, 0.0, 0.0, set(), []])
+        acc[5].update((p.path, p.cluster) for p in (counts_launch_plan(*h.shape, cand)
+                                                    for h in [x] + hs))
         acc[0] += 1
         acc[1] += int(neigh.shape[0])
         acc[2] += k1
         acc[3] += k2
         acc[4] += (x.numel() * 4 + x.shape[0] * 4 + x.shape[0] * cand * 4) / hw.HBM_BW * 1e3
-    for w, (nt, nr, k1, k2, b) in sorted(per_width_counts.items()):
-        log(f"  counts width {w:>6}: {nt:>2} tile(s) {nr:>8,} rows: one shard {k1:.4f} ms, "
-            f"two shards {k2:.4f} ms, bound {b:.4f} ms (each tile timed alone)")
+        acc[6].append((x, e))
+    for w, (nt, nr, k1, k2, b, labels, xs) in sorted(per_width_counts.items()):
+        row = device_time_ms(torch, lambda: [partial_counts_op(x, e, cand=cand) for x, e in xs],
+                             reps=5)
+        log(f"  counts width {w:>6}: {nt:>2} tile(s) {nr:>8,} rows: one shard {k1:.4f} ms "
+            f"alone, {row:.4f} ms in a row, two shards {k2:.4f} ms alone, bound {b:.4f} ms "
+            f"(plans as (path, cluster) {sorted(labels)})")
     del halves
 
     # ---------------- phase 5: the distributed main path, one rank -------- #

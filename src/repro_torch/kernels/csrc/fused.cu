@@ -21,8 +21,8 @@
 //
 // What the design does about it, by width class (one launch per bucket;
 // the launch plan -- path, block size, grid, cluster, shared memory -- is
-// computed in Python, kernels/fused/ops.py::fused_launch_plan, and this
-// file only launches it):
+// computed in Python, kernels/plan.py::fused_launch_plan, and this file
+// only launches it, through hist_common.cuh launch_row_plan):
 //   * width <= 16: a group of 8 or 16 lanes per row, one slot per lane
 //     (hist_common.cuh row_per_group), so loads are contiguous across a
 //     warp and a 10 k-row tile spreads over every SM;
@@ -52,6 +52,11 @@ namespace {
 
 template <typename T>
 struct FusedPolicy {
+  // The hist path aggregates equal bins of a warp before its shared
+  // atomics, as measured when this kernel was redesigned (hist_common.cuh
+  // bin_slots).
+  static constexpr bool kAggregateBins = true;
+
   const T* __restrict__ c;
   const int32_t* __restrict__ ext_pad;
   const int32_t* __restrict__ ids;
@@ -98,53 +103,6 @@ struct FusedPolicy {
   }
 };
 
-// Launch plan paths; the order of ops.py's PATHS.
-enum Path { kGroup = 0, kWarp = 1, kHist = 2, kSearch = 3 };
-
-template <class P>
-void launch_warp(const P& p, int rows, int width, int bound, int blocks, int threads,
-                 cudaStream_t s) {
-  const int vpt = (width + 31) / 32;
-  if (vpt <= 1) {
-    kcore::row_per_warp<1, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
-  } else if (vpt <= 2) {
-    kcore::row_per_warp<2, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
-  } else if (vpt <= 4) {
-    kcore::row_per_warp<4, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
-  } else if (vpt <= 8) {
-    kcore::row_per_warp<8, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
-  } else if (vpt <= 16) {
-    kcore::row_per_warp<16, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
-  } else {
-    kcore::row_per_warp<32, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
-  }
-}
-
-template <class P>
-cudaError_t launch_hist(const P& p, int rows, int width, int bound, int blocks,
-                        int threads, int cluster, int smem_bytes, cudaStream_t s) {
-  // Above 48 KB a kernel takes dynamic shared memory only after opting in
-  // (only a candidate window above ~12 k bins gets there).
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kcore::row_per_cluster<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kcore::row_per_cluster<P>, p, rows, width, bound);
-}
-
 template <typename T>
 cudaError_t launch(const void* c, const int32_t* ext_pad, const int32_t* ids,
                    const int32_t* neigh, int32_t* est, int32_t* changed, int8_t* dirty,
@@ -154,29 +112,8 @@ cudaError_t launch(const void* c, const int32_t* ext_pad, const int32_t* ids,
   using P = FusedPolicy<T>;
   const P p{static_cast<const T*>(c), ext_pad, ids, neigh, est,
             changed, dirty, width, sentinel, track_dirty};
-  switch (path) {
-    case kGroup:
-      if (group == 8 && width <= 8) {
-        kcore::row_per_group<8, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
-      } else if (group == 16 && width <= 16) {
-        kcore::row_per_group<16, P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
-      } else {
-        return cudaErrorInvalidValue;
-      }
-      return cudaSuccess;
-    case kWarp:
-      if (width > kcore::kWarpMaxWidth) return cudaErrorInvalidValue;
-      launch_warp(p, rows, width, bound, blocks, threads, s);
-      return cudaSuccess;
-    case kHist:
-      if (smem_bytes < (bound + 1 + kcore::kHistScratch) * 4) return cudaErrorInvalidValue;
-      return launch_hist(p, rows, width, bound, blocks, threads, cluster, smem_bytes, s);
-    case kSearch:
-      kcore::row_per_block<P><<<blocks, threads, 0, s>>>(p, rows, width, bound);
-      return cudaSuccess;
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return kcore::launch_row_plan(p, rows, width, bound, path, threads, blocks, cluster,
+                               smem_bytes, group, s);
 }
 
 }  // namespace
@@ -185,8 +122,9 @@ cudaError_t launch(const void* c, const int32_t* ext_pad, const int32_t* ids,
 // ext_pad [n+1] int32; ids [rows] int32; neigh [rows, width] int32 (pads
 // = n); outputs est, changed [rows] int32; dirty [n+1] int8 (stored into,
 // not zeroed). path / threads / blocks / cluster / smem_bytes / group are
-// the launch plan of ops.py::fused_launch_plan for these shapes. Launches
-// on `stream`; returns the launch's error, else cudaGetLastError() after it.
+// the launch plan of kernels/plan.py::fused_launch_plan for these shapes.
+// Launches on `stream`; returns the launch's error, else cudaGetLastError()
+// after it.
 extern "C" int kcore_fused_sweep(const void* c, int c_bytes, const int32_t* ext_pad,
                                  const int32_t* ids, const int32_t* neigh,
                                  int32_t* est, int32_t* changed, int8_t* dirty,

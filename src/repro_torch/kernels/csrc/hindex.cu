@@ -6,23 +6,32 @@
 // (0 if no i is feasible) over x [rows, width] int32 with -1 padding.
 //
 // What bounds it on the H100: bytes. Each row is read once from HBM
-// (4 * width bytes) and the answer written once; the search does about
-// width * log2(cand) int32 compares on the CUDA cores, under one compare
-// per byte read, far below the ~5 ops/byte at which the INT32 rate
+// (4 * width bytes) and the answer written once; the arithmetic is far
+// below the ~5 int32 operations per byte at which the INT32 rate
 // (16.7 Tops/s) would take over from the 3.35 TB/s memory rate.
 //
-// What the design does about it: the TPU form's [tile, width, cand_chunk]
-// compare volume (O(width * cand)) becomes a binary search over the exact
-// count, so compute stays out of the way; each row is read once, with
-// coalesced loads (a warp or block per row above width 16), and the row's
-// values stay in registers for the search below width 1024. Rows wider
-// than 1024 re-read their row from L1/L2 on each counting pass, which
-// costs cache bandwidth, not HBM bytes. See hindex_common.cuh.
-#include "hindex_common.cuh"
+// What the design does about it: it is the fused kernel (fused.cu) without
+// the gather and the push, on the same paths and the same launch plan
+// (kernels/plan.py::fused_launch_plan, launched by hist_common.cuh
+// launch_row_plan):
+//   * width <= 16: a group of 8 or 16 lanes per row, one slot per lane, so
+//     a warp's loads of consecutive rows are contiguous (row_per_group);
+//   * width <= 1024: a warp per row, values in registers, binary search
+//     (hindex_common.cuh row_per_warp);
+//   * wider: one shared-memory histogram of the clamped values per row, so
+//     each slot is read once (row_per_cluster), the row split over a
+//     thread-block cluster when the tile has fewer rows than SMs;
+//   * a bound whose bins exceed shared memory: the exact binary search of
+//     hindex_common.cuh row_per_block, which re-reads the row per pass.
+// The policy below meets the row-policy contract of those paths: finish()
+// writes the estimate and returns false, so nothing is pushed.
+#include "hist_common.cuh"
 
 namespace {
 
 struct HindexPolicy {
+  // Plain shared atomics on the hist path (hist_common.cuh bin_slots).
+  static constexpr bool kAggregateBins = false;
   const int32_t* __restrict__ x;
   const int32_t* __restrict__ ext;
   int32_t* __restrict__ out;
@@ -51,12 +60,19 @@ struct HindexPolicy {
 }  // namespace
 
 // x [rows, width] int32 (-1 pad), ext [rows] int32 -> out [rows] int32.
-// Launches on `stream`; returns cudaGetLastError() after the launch.
+// path / threads / blocks / cluster / smem_bytes / group are the launch
+// plan of kernels/plan.py::fused_launch_plan for these shapes. Launches on
+// `stream`; returns the launch's error, else cudaGetLastError() after it.
 extern "C" int kcore_hindex(const int32_t* x, const int32_t* ext, int32_t* out,
-                            int rows, int width, int cand, void* stream) {
+                            int rows, int width, int cand, int path, int threads,
+                            int blocks, int cluster, int smem_bytes, int group,
+                            void* stream) {
   if (rows <= 0 || width <= 0) return 0;
   const int bound = min(max(cand, 1), width);
   const HindexPolicy p{x, ext, out, width};
-  kcore::dispatch(p, rows, width, bound, static_cast<cudaStream_t>(stream));
+  const cudaError_t err =
+      kcore::launch_row_plan(p, rows, width, bound, path, threads, blocks, cluster,
+                             smem_bytes, group, static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,7 @@
-// Shared device code of the two k-core sweep kernels (hindex.cu, fused.cu).
-// hindex.cu launches every row through dispatch() below; fused.cu takes
-// row_per_warp (its warp path) and row_per_block (its exact search for a
-// bound whose bins exceed shared memory), and its narrow and wide rows from
-// hist_common.cuh.
+// The binary-search row paths of the two k-core h-index kernels (fused.cu,
+// hindex.cu): a warp per row up to 1,024 slots, and a block per row with
+// the exact search for a bound whose histogram bins exceed shared memory.
+// hist_common.cuh holds the other two paths and the launcher of both files.
 //
 // Both kernels compute, per row r of a padded [rows, width] neighbour tile,
 //
@@ -17,15 +16,11 @@
 // passes over the row instead of cand passes. The result is the exact
 // clamped h-index, the same function as the plain PyTorch versions, on
 // every input (no predication on the current estimate is needed).
-//
-// Rows are dispatched by width class, so a hub row never holds up a launch
-// of narrow rows:
-//   * width <= 16:   one thread per row, the row's values in registers;
-//   * width <= 1024: one warp per row, width/32 values per lane in registers,
-//                    counts reduced with __reduce_add_sync;
-//   * wider (hubs):  one block of 1024 threads per row; each counting pass
-//                    re-reads the row (from L1/L2 after the first pass) and
-//                    reduces across the block through shared memory.
+//   * row_per_warp:  width/32 values per lane in registers, counts reduced
+//                    with __reduce_add_sync; the row is read once;
+//   * row_per_block: 1,024 threads per row; each counting pass re-reads the
+//                    row (from L1/L2 after the first pass) and reduces
+//                    across the block through shared memory.
 //
 // A kernel body is written once against a row policy P:
 //   P::Row  row(r)                      per-row state (ext, ...)
@@ -34,6 +29,8 @@
 //   bool    finish(r, R, h, write)      write outputs (if write); returns
 //                                       whether the row's neighbours are pushed
 //   void    push(nb)                    the dirty-bit push of one neighbour
+//   static constexpr bool kAggregateBins  whether the hist path aggregates
+//                                       equal bins of a warp (hist_common.cuh)
 #pragma once
 
 #include <cstdint>
@@ -42,9 +39,8 @@
 namespace kcore {
 
 constexpr unsigned kFullMask = 0xffffffffu;
-constexpr int kThreadBlock = 256;      // thread and warp paths
+constexpr int kThreadBlock = 256;      // warp path: threads per block
 constexpr int kRowBlock = 1024;        // block path: threads per hub row
-constexpr int kThreadMaxWidth = 16;
 constexpr int kWarpMaxWidth = 1024;
 
 template <int N>
@@ -110,30 +106,6 @@ __device__ __forceinline__ int block_max(int v, int* red) {
   return red[32];
 }
 
-template <class P>
-__global__ void __launch_bounds__(kThreadBlock)
-row_per_thread(P p, int rows, int width, int bound) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const typename P::Row R = p.row(r);
-  int y[kThreadMaxWidth];
-  int nb[kThreadMaxWidth];
-#pragma unroll
-  for (int k = 0; k < kThreadMaxWidth; ++k) {
-    y[k] = -1;
-    nb[k] = 0;
-    if (k < width) y[k] = p.slot(R, k, nb[k]);
-  }
-  const int hi = min(bound, min(count_ge(y, 1), max_of(y)));
-  const int h = hindex_search(hi, [&](int t) { return count_ge(y, t); });
-  if (p.finish(r, R, h, true)) {
-#pragma unroll
-    for (int k = 0; k < kThreadMaxWidth; ++k) {
-      if (k < width) p.push(nb[k]);
-    }
-  }
-}
-
 template <int VPT, class P>
 __global__ void __launch_bounds__(kThreadBlock)
 row_per_warp(P p, int rows, int width, int bound) {
@@ -197,36 +169,6 @@ row_per_block(P p, int rows, int width, int bound) {
   if (p.finish(r, R, h, threadIdx.x == 0)) {
     for (int j = threadIdx.x; j < width; j += blockDim.x) p.push(p.neighbor(R, j));
   }
-}
-
-// Launch the width class's kernel on `stream`; rows > 0, 1 <= bound <= width.
-template <class P>
-void dispatch(const P& p, int rows, int width, int bound, cudaStream_t stream) {
-  if (width <= kThreadMaxWidth) {
-    const int blocks = (rows + kThreadBlock - 1) / kThreadBlock;
-    row_per_thread<P><<<blocks, kThreadBlock, 0, stream>>>(p, rows, width, bound);
-    return;
-  }
-  if (width <= kWarpMaxWidth) {
-    constexpr int kWarps = kThreadBlock / 32;
-    const int blocks = (rows + kWarps - 1) / kWarps;
-    const int vpt = (width + 31) / 32;
-    if (vpt <= 1) {
-      row_per_warp<1, P><<<blocks, kThreadBlock, 0, stream>>>(p, rows, width, bound);
-    } else if (vpt <= 2) {
-      row_per_warp<2, P><<<blocks, kThreadBlock, 0, stream>>>(p, rows, width, bound);
-    } else if (vpt <= 4) {
-      row_per_warp<4, P><<<blocks, kThreadBlock, 0, stream>>>(p, rows, width, bound);
-    } else if (vpt <= 8) {
-      row_per_warp<8, P><<<blocks, kThreadBlock, 0, stream>>>(p, rows, width, bound);
-    } else if (vpt <= 16) {
-      row_per_warp<16, P><<<blocks, kThreadBlock, 0, stream>>>(p, rows, width, bound);
-    } else {
-      row_per_warp<32, P><<<blocks, kThreadBlock, 0, stream>>>(p, rows, width, bound);
-    }
-    return;
-  }
-  row_per_block<P><<<rows, kRowBlock, 0, stream>>>(p, rows, width, bound);
 }
 
 }  // namespace kcore

@@ -11,111 +11,23 @@ sentinel slot ``n``. Pad neighbours of a changed row would set
 ``dirty[n]``, a slot no reader ever looks at, and on the card every such
 store would hit one address.
 
-:func:`fused_launch_plan` decides how a bucket is launched (the width
-class's path, block size, grid, cluster and shared memory); the C entry
-point only launches what it is given, so the CPU tests reach every rule.
+:func:`~repro_torch.kernels.plan.fused_launch_plan` (re-exported here)
+decides how a bucket is launched (the width class's path, block size,
+grid, cluster and shared memory); the C entry point only launches what it
+is given, so the CPU tests reach every rule.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.hindex.ops import hindex_plain
+from repro_torch.kernels.plan import (  # noqa: F401  (re-exported)
+    MAX_BINS, PATHS, SMS, FusedPlan, checked_plan, fused_launch_plan)
 
 _fn = None
-
-# The launch plan's constants, for the H100 SXM: its SMs; the histogram
-# bins that fit, beside the kernel's scratch ints (hist_common.cuh
-# kHistScratch), in the 227 KB (232,448 bytes) of shared memory one block
-# may take; the largest portable cluster; the paths' block sizes, each at
-# most its kernel's __launch_bounds__ (hist_common.cuh kGroupBlock,
-# hindex_common.cuh kThreadBlock and kRowBlock).
-SMS = 132
-HIST_SCRATCH = 64
-MAX_BINS = 57_344
-MAX_CLUSTER = 8
-GROUP_BLOCK = 128
-WARP_BLOCK = 256
-SEARCH_BLOCK = 1024
-PATHS = ("group", "warp", "hist", "search")  # fused.cu's enum Path, in order
-
-
-class FusedPlan(NamedTuple):
-    """How one bucket is launched: ``path`` (one of :data:`PATHS`),
-    ``threads`` per block, ``blocks`` in the grid, ``cluster`` blocks per
-    thread-block cluster (the blocks of one row on the hist path),
-    ``smem_bytes`` of dynamic shared memory, and ``group``, the threads of
-    one block that take one row."""
-
-    path: str
-    threads: int
-    blocks: int
-    cluster: int
-    smem_bytes: int
-    group: int
-
-
-def _next_pow2(x: int) -> int:
-    return 1 << max(0, int(x) - 1).bit_length()
-
-
-@functools.lru_cache(maxsize=4096)
-def fused_launch_plan(rows: int, width: int, cand: int, *,
-                      path: Optional[str] = None,
-                      cluster: Optional[int] = None) -> FusedPlan:
-    """The launch plan of ``csrc/fused.cu`` for a ``[rows, width]`` bucket
-    with candidate window ``cand`` (a pure function of the shapes).
-
-    Paths by width, with ``B = min(max(cand, 1), width)``:
-
-    * ``group`` (width <= 16): 8 or 16 lanes per row, ``GROUP_BLOCK``
-      threads a block, so a 10 k-row width-8 tile makes 670 blocks;
-    * ``warp`` (width <= 1024): a warp per row, ``WARP_BLOCK`` threads;
-    * ``hist`` (wider, ``B + 1 <= MAX_BINS``): a shared-memory histogram of
-      ``B + 1`` bins per row; a tile with fewer rows than ``SMS`` splits
-      each row over a cluster of up to ``MAX_CLUSTER`` blocks (while each
-      block keeps at least 1,024 slots), so its rows reach every SM (on the
-      H100 that beat one block a row 2-4x on tiles of 8 and 24 rows, and
-      lost 8% on one of 192); 256-1,024 threads a block, about 8 slots a
-      thread;
-    * ``search`` (``B + 1 > MAX_BINS``): a block per row, the exact binary
-      search (the bins would not fit in shared memory).
-
-    ``path`` and ``cluster`` force a path (it must cover the width) and a
-    hist cluster; the rest follows from them.
-    """
-    rows, width = int(rows), int(width)
-    bound = min(max(int(cand), 1), width)
-    if path is None:
-        path = ("group" if width <= 16 else "warp" if width <= 1024
-                else "hist" if bound + 1 <= MAX_BINS else "search")
-    if cluster is not None and path != "hist":
-        raise ValueError(f"fused_launch_plan: a cluster is only planned on the hist path, "
-                         f"not {path!r}")
-    if path == "group" and width <= 16:
-        group = 8 if width <= 8 else 16
-        return FusedPlan(path, GROUP_BLOCK, -(-rows * group // GROUP_BLOCK), 1, 0, group)
-    if path == "warp" and width <= 1024:
-        return FusedPlan(path, WARP_BLOCK, -(-rows * 32 // WARP_BLOCK), 1, 0, 32)
-    if path == "hist" and bound + 1 <= MAX_BINS:
-        if cluster is None:
-            want = -(-SMS // max(rows, 1))
-            cluster = 1
-            while cluster < min(want, MAX_CLUSTER) and width // (2 * cluster) >= 1024:
-                cluster *= 2
-        if not 1 <= cluster <= MAX_CLUSTER:
-            raise ValueError(f"fused_launch_plan: cluster {cluster} not in [1, {MAX_CLUSTER}]")
-        share = -(-width // cluster)
-        threads = min(1024, max(256, _next_pow2(-(-share // 8))))
-        smem = (bound + 1 + HIST_SCRATCH) * 4
-        return FusedPlan(path, threads, rows * cluster, cluster, smem, threads)
-    if path == "search":
-        return FusedPlan(path, SEARCH_BLOCK, rows, 1, 0, SEARCH_BLOCK)
-    raise ValueError(f"fused_launch_plan: path {path!r} cannot take width {width} "
-                     f"with cand {cand}")
 
 
 def fused_sweep_plain(
@@ -212,12 +124,7 @@ def fused_sweep_op(
         raise TypeError("fused_sweep_op: c must be int16/int32, ext_pad/ids/"
                         "neigh int32, dirty int8")
     rows, width = neigh.shape
-    if plan is None:
-        plan = fused_launch_plan(rows, width, cand)
-    elif plan != fused_launch_plan(rows, width, cand, path=plan.path,
-                                   cluster=plan.cluster if plan.path == "hist" else None):
-        raise ValueError(f"fused_sweep_op: {plan} is not a launch plan for "
-                         f"[{rows}, {width}] rows with cand {cand}")
+    plan = checked_plan("fused_sweep_op", plan, fused_launch_plan, rows, width, cand)
     tensors = [c, ext_pad, ids, neigh] + ([dirty] if dirty is not None else [])
     if all(t.device.type == "cpu" for t in tensors):
         return fused_sweep_plain(c, ext_pad, ids, neigh, cand=cand,

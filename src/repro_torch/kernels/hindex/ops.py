@@ -8,12 +8,22 @@ other. :func:`hindex_plain` transcribes the JAX package's oracle
     out[r] = ext[r] + max{ i in [1, cand] : #{j : x[r, j] >= ext[r] + i} >= i }
 
 (0 if no ``i`` is feasible), with ``cand`` clamped to ``[1, width]``.
+
+The kernel launches the fused kernel's row paths by the fused kernel's
+launch plan (:func:`~repro_torch.kernels.plan.fused_launch_plan`): a
+sub-warp group per row up to 16 slots, a warp per row up to 1,024, a
+shared-memory histogram per wider row (split over a cluster on tiles with
+fewer rows than SMs), and the exact search when the bins exceed shared
+memory.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
+
+from repro_torch.kernels.plan import PATHS, FusedPlan, checked_plan, fused_launch_plan
 
 # The plain version materializes at most this many [row, slot, candidate]
 # compares at a time (rows and candidates are chunked), so hub widths stay
@@ -52,14 +62,20 @@ def _kernel():
         from repro_torch.kernels.build import load
 
         fn = load("hindex").kcore_hindex
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, ext, out
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # rows, width, cand
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # path, threads, blocks
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # cluster, smem_bytes, group
+            ctypes.c_void_p,                                   # stream
+        ]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def hindex_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int) -> torch.Tensor:
+def hindex_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int,
+              plan: Optional[FusedPlan] = None) -> torch.Tensor:
     """H-index of one padded bucket: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.
 
@@ -68,6 +84,10 @@ def hindex_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int) -> torch.Tensor:
         estimates, pad slots -1.
       ext: [rows] int32 external information.
       cand: candidate window (degeneracy bound; clamped to ``[1, width]``).
+      plan: the kernel's launch plan; default ``fused_launch_plan(rows,
+        width, cand)``. A given plan must be one that function makes for
+        these shapes (with its path and cluster forced), as for
+        ``fused_sweep_op``.
     Returns:
       [rows] int32 new estimates.
 
@@ -80,6 +100,8 @@ def hindex_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int) -> torch.Tensor:
         x = x.to(torch.int32)
     if x.dtype != torch.int32 or ext.dtype != torch.int32:
         raise TypeError(f"hindex_op: x {x.dtype} / ext {ext.dtype} must be int32")
+    rows, width = x.shape
+    plan = checked_plan("hindex_op", plan, fused_launch_plan, rows, width, cand)
     if x.device.type == "cpu" and ext.device.type == "cpu":
         return hindex_plain(x, ext, cand=cand)
     if x.device.type != "cuda" or ext.device != x.device:
@@ -87,13 +109,13 @@ def hindex_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int) -> torch.Tensor:
                          f"both must be on one CUDA device (or both on the CPU)")
     if not (x.is_contiguous() and ext.is_contiguous()):
         raise ValueError("hindex_op: x and ext must be contiguous")
-    rows, width = x.shape
     out = torch.empty(rows, dtype=torch.int32, device=x.device)
     if rows == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel()(x.data_ptr(), ext.data_ptr(), out.data_ptr(),
-                    rows, width, int(cand), stream)
+    err = _kernel()(x.data_ptr(), ext.data_ptr(), out.data_ptr(), rows, width, int(cand),
+                    PATHS.index(plan.path), plan.threads, plan.blocks, plan.cluster,
+                    plan.smem_bytes, plan.group, stream)
     if err:
         raise RuntimeError(f"kcore_hindex launch failed with CUDA error {err}")
     hindex_op.launches += 1

@@ -16,15 +16,16 @@ from repro_torch.graph.build import bucketize
 from repro_torch.graph.generators import rmat
 from repro_torch.graph.oracle import peel_coreness
 from repro_torch.core.distributed import MeshPlan, decompose_distributed
-from repro_torch.kernels.counts import partial_counts_op, partial_counts_plain
+from repro_torch.kernels.counts import counts_launch_plan, partial_counts_op, partial_counts_plain
 from repro_torch.kernels.fused import fused_launch_plan, fused_sweep_op, fused_sweep_plain
 from repro_torch.kernels.fused.ops import MAX_BINS
 from repro_torch.kernels.hindex import hindex_op, hindex_plain
 
 pytestmark = pytest.mark.cuda
 
-# Every dispatch class: thread per row (<= 16), warp per row (<= 1024, each
-# register-count instantiation), block per row; odd widths too.
+# Every width class: a sub-warp group per row (<= 16), a warp per row
+# (<= 1024, each register-count instantiation), a histogram per row (a
+# cluster of blocks on tiles of few rows); odd widths too.
 WIDTHS = [1, 5, 8, 16, 17, 32, 33, 64, 100, 256, 512, 1000, 1024, 1025,
           2048, 8192, 65536]
 
@@ -324,3 +325,95 @@ def test_distributed_on_card_matches_cpu(dev, use_kernel, wire):
     np.testing.assert_array_equal(on_card.coreness, on_cpu.coreness)
     assert on_card.comm_per_iter == on_cpu.comm_per_iter
     assert on_card.active_rows_per_iter == on_cpu.active_rows_per_iter
+
+
+# --------------------------------------------------------------------- #
+# The h-index kernel on every path of the fused kernel's launch plan
+# --------------------------------------------------------------------- #
+def _hindex_plans(rows, w, cand):
+    """The planned launch and each other path that covers the width (the
+    hist path with one block a row and with a cluster of 8)."""
+    plans = [fused_launch_plan(rows, w, cand)]
+    for path, cluster in (("group", None), ("warp", None), ("hist", 1), ("hist", 8),
+                          ("search", None)):
+        try:
+            plans.append(fused_launch_plan(rows, w, cand, path=path, cluster=cluster))
+        except ValueError:
+            pass
+    return list(dict.fromkeys(plans))
+
+
+@pytest.mark.parametrize("w", [1, 5, 8, 16, 4096, 16384, 65536])
+@pytest.mark.parametrize("rows", [1, 3, 37, 1001])
+def test_hindex_every_path(dev, w, rows):
+    rng = np.random.default_rng(w * 7 + rows)
+    x = rng.integers(-1, min(w, 1389) + 6, size=(rows, w))
+    x[: rows // 2, : max(1, w // 3)] = 2  # one repeated estimate: one bin takes many slots
+    x = np.where(rng.random((rows, w)) < 0.2, -1, x).astype(np.int32)
+    xt = torch.from_numpy(x).to(dev)
+    et = torch.from_numpy(rng.integers(0, 4, size=rows).astype(np.int32)).to(dev)
+    paths = set()
+    for cand in (3, 1389):
+        want = hindex_plain(xt, et, cand=cand)
+        for plan in _hindex_plans(rows, w, cand):
+            got = hindex_op(xt, et, cand=cand, plan=plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (w, rows, cand, plan)
+            paths.add(plan.path)
+    assert paths == ({"group", "warp", "hist", "search"} if w <= 16 else {"hist", "search"})
+
+
+# --------------------------------------------------------------------- #
+# The counts kernel on every path of its launch plan
+# --------------------------------------------------------------------- #
+def _counts_plans(rows, w, cand):
+    """The planned launch and each other path that covers the shape (the
+    hist path with one block a row and with a cluster of 8)."""
+    plans = [counts_launch_plan(rows, w, cand)]
+    for path, cluster in (("step", None), ("warp", None), ("hist", 1), ("hist", 8)):
+        try:
+            plans.append(counts_launch_plan(rows, w, cand, path=path, cluster=cluster))
+        except ValueError:
+            pass
+    return list(dict.fromkeys(plans))
+
+
+@pytest.mark.parametrize("rows,w,cand", [
+    (1, 1, 1), (3, 5, 2), (37, 8, 3),   # rows x cand not a multiple of 4: flat head and tail
+    (37, 8, 1389), (1001, 4, 1389),     # cand far above the width
+    (1001, 16, 7), (64, 16, 1), (255, 16, 1389),
+    (5, 33, 1), (37, 64, 130), (1001, 100, 1389), (3, 1024, 50),
+    (8, 2048, 1389), (3, 4096, 300), (2, 65536, 1389),
+    (5, 300, 20_000), (2, 100, 60_000), (1, 8, 60_000),  # window by window on the hist path
+])
+def test_counts_every_path(dev, rows, w, cand):
+    rng = np.random.default_rng(rows * 31 + w + cand)
+    x = rng.integers(-1, min(w, cand) + 20, size=(rows, w))
+    x[: rows // 2, : max(1, w // 3)] = rng.choice([2, cand + 5])  # repeated estimates
+    x = np.where(rng.random((rows, w)) < 0.2, -1, x).astype(np.int32)
+    xt = torch.from_numpy(x).to(dev)
+    et = torch.from_numpy(rng.integers(0, 6, size=rows).astype(np.int32)).to(dev)
+    want = partial_counts_plain(xt, et, cand=cand)
+    plans = _counts_plans(rows, w, cand)
+    for plan in plans:
+        before = partial_counts_op.launches
+        got = partial_counts_op(xt, et, cand=cand, plan=plan)
+        torch.cuda.synchronize()
+        assert partial_counts_op.launches == before + 1
+        assert got.shape == (rows, cand)
+        assert torch.equal(got, want), (rows, w, cand, plan)
+    assert "hist" in {p.path for p in plans}
+
+
+# A tile whose rows x cand passes 2^31 outputs: every flat index is 64-bit.
+@pytest.mark.parametrize("path", ["step", "warp", "hist"])
+def test_counts_tile_past_2_31_outputs(dev, path):
+    rows, w, cand = 1_600_000, 8, 1389
+    assert rows * cand > 2**31
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randint(-1, 1500, (rows, w), dtype=torch.int32, device=dev, generator=gen)
+    ext = torch.randint(0, 5, (rows,), dtype=torch.int32, device=dev, generator=gen)
+    got = partial_counts_op(x, ext, cand=cand, plan=counts_launch_plan(rows, w, cand, path=path))
+    torch.cuda.synchronize()
+    for sl in (slice(0, 1000), slice(rows - 1000, rows)):
+        assert torch.equal(got[sl], partial_counts_plain(x[sl], ext[sl], cand=cand)), (path, sl)
