@@ -44,15 +44,17 @@ and fails (non-zero exit, no result line) without them. Phases:
    time and its bound.
 5. The distributed main path on one rank: ``dc_kcore`` through
    ``make_distributed_decompose`` on a 1x1 plan with the counts kernel, at
-   ``rmat(20, 16, seed=0)`` with the thresholds (64, 16) and monolithic,
-   plus a monolithic run without the kernel that must give the same
-   per-sweep trajectories. Every run must equal the oracle; the counts
+   ``rmat(20, 16, seed=0)`` with the thresholds (64, 16) and monolithic.
+   Every run must equal the oracle; the counts
    kernel's launch counter is zeroed just before and read just after, and
    must be above 0.
 6. Four ranks on the one card: four processes (this script with
    ``--fleet-rank``), gloo over a ``file://`` store, CUDA tensors, a
    (2, 2) data x model plan, on ``rmat(16, 16, seed=0)`` written by this
-   process. ``dc_kcore`` with the thresholds and the counts kernel must
+   process, after its one-rank run with the counts kernel and one without
+   it, which must take the same per-sweep trajectories (this check ran at
+   ``rmat(20, 16)`` until the serve phase needed the time).
+   ``dc_kcore`` with the thresholds and the counts kernel must
    equal the oracle and the one-rank run's trajectories; a
    ``frontier=False`` run's collective bytes must equal the planned
    schedule. Any rank's failure fails the smoke. gloo moves the
@@ -60,13 +62,45 @@ and fails (non-zero exit, no result line) without them. Phases:
 7. Crash and resume on ``rmat(16, 16)``, one rank, counts kernel: snapshots
    every sweep, a crash raised at the second snapshot save, a resume that
    must restart mid-part and reach the uninterrupted run's coreness.
-8. The kernel table as one JSON line, then the result line.
+8. Out-of-core ingest of ``rmat(20, 16, seed=0)``: the graph re-streamed
+   through ``graph_edge_chunks`` -> ``csr_from_edge_chunks`` (2^20-edge
+   chunks, a spill directory) must give the in-memory CSR bit for bit, with
+   ``IngestStats``' transient and resident bytes printed; ``save_npz`` /
+   ``load_npz`` round trip; the SNAP text path ``save_edgelist`` ->
+   ``stream_edgelist``, bit-identical too, at ``rmat(16, 16)`` (it parses
+   one line at a time in Python: 68 s at ``rmat(20, 16)`` on the card's
+   host).
+9. The overlapped pipeline: ``dc_kcore`` on ``rmat(20, 16)`` with the
+   thresholds (64, 16) and the fused engine, Rough- and Exact-Divide, with
+   ``overlap`` off and on; coreness byte-identical between the two and
+   equal to the oracle, no prefetch miss under Exact-Divide, and one
+   overlapped run with a checkpoint directory (async saves) whose latest
+   checkpoint restores to the same coreness. Wall and sweeping time, the
+   device-idle fraction and the prefetch hits and misses are printed.
+10. Incremental serving on ``rmat(20, 16)``: an edit log of 8 sealed batches
+    of 2,048 uniform inserts and 2,048 deletes of existing edges, one batch
+    of 1 insert and one batch of 4,096 + 4,096 (past the dirty budget),
+    written batch by batch while this process replays it through
+    ``apply_updates`` with the fused engine; side by side, a second thread
+    replays it with the h-index engine and the serve CLI (``python -m
+    repro_torch.launch.kcore_serve --device cuda``) tails it in a
+    subprocess. Each batch must equal a from-scratch fused decompose, the
+    final graph the oracle; both update modes must occur and the kernels'
+    launch counters move on the update path (the CLI reports its own).
+    The replays share the host's cores and the card, so their per-batch
+    times are taken under that load. One incremental re-sweep's starting
+    state is captured, and the fused and h-index kernels are held against
+    their plain versions on every tile at that state. Per batch: mode,
+    dirty fraction and the split into splice, region BFS, bucketize and
+    re-sweep; the CLI's updates/s, query p50/p99 and staleness.
+11. The kernel table as one JSON line, then the result line.
 
 Nothing here imports JAX or the JAX package (``src/repro``).
 """
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -83,6 +117,11 @@ THRESHOLDS = (64, 16)
 SMALL_SCALE = 16  # rmat(16, 16, seed=0): the four-rank and crash-resume phases
 FLEET_SHAPE, FLEET_AXES = (2, 2), ("data", "model")
 FLEET_TIMEOUT_S = 600
+# Phase 10's edit batches (inserts, deletes). At rmat(20,16) a 2,048 +
+# 2,048 batch already floods a dirty region of 0.62 of the nodes (past the
+# 0.5 budget: a full re-sweep), so the last batch, twice that, is sure to;
+# the single insert takes the incremental path.
+SERVE_BATCHES = [(2048, 2048)] * 8 + [(1, 0), (4096, 4096)]
 SLEEP_CYCLES = 20_000_000  # ~10 ms at 1.98 GHz: the host enqueues a whole sweep meanwhile
 
 
@@ -600,17 +639,10 @@ def main() -> int:
         return rec, results
 
     plan1 = MeshPlan()
-    dist_runs = [
-        ("counts kernel", THRESHOLDS, True),
-        ("counts kernel", (), True),
-        ("plain counts", (), False),
-    ]
-    trajectories = {}
     partial_counts_op.launches = 0
-    for name, thresholds, use_kernel in dist_runs:
+    for thresholds in (THRESHOLDS, ()):
         before = partial_counts_op.launches
-        fn, results = recording(make_distributed_decompose(
-            plan1, use_kernel=use_kernel, device="cuda"))
+        fn = make_distributed_decompose(plan1, use_kernel=True, device="cuda")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         core, rep = dc_kcore(g, thresholds, decompose_fn=fn)
@@ -618,20 +650,15 @@ def main() -> int:
         wall = time.perf_counter() - t0
         ok = bool((core == oracle).all())
         d_counts = partial_counts_op.launches - before
-        trajectories[name, thresholds] = [(r.comm_per_iter, r.active_rows_per_iter)
-                                          for r in results]
-        log(f"distributed 1x1 {name:>13} thresholds={list(thresholds)}: wall {wall:.2f}s "
+        log(f"distributed 1x1 counts kernel thresholds={list(thresholds)}: wall {wall:.2f}s "
             f"(sweeping {rep.total_decompose_time_s:.2f}s), sweeps {rep.total_iterations}, "
             f"total comm {rep.total_comm:,}, gathered rows {rep.total_gathered_rows:,}, "
             f"peak part bytes {rep.peak_bytes:,}, launches counts={d_counts:,}: "
             f"{'CONSISTENT' if ok else 'MISMATCH'}")
         if not ok:
-            raise AssertionError(f"distributed {name} {thresholds}: coreness != oracle")
-        if (d_counts > 0) != use_kernel:
-            raise AssertionError(f"distributed {name}: {d_counts} counts launches")
-    if trajectories["counts kernel", ()] != trajectories["plain counts", ()]:
-        raise AssertionError("the monolithic runs with and without the counts kernel "
-                             "took different per-sweep trajectories")
+            raise AssertionError(f"distributed {thresholds}: coreness != oracle")
+        if d_counts <= 0:
+            raise AssertionError(f"distributed {thresholds}: {d_counts} counts launches")
     launches["counts"] = partial_counts_op.launches
     if launches["counts"] <= 0:
         raise AssertionError("the counts kernel never launched on the distributed main path")
@@ -648,9 +675,22 @@ def main() -> int:
         if not (core1 == small_oracle).all():
             raise AssertionError("distributed 1x1 on the small graph: coreness != oracle")
         traj1 = [[r.comm_per_iter, r.active_rows_per_iter] for r in res1]
+        # The same run without the counts kernel (the engine's own torch
+        # counts, `_partial_counts`, on the card) must take the same
+        # per-sweep trajectories.
+        fnp, resp = recording(make_distributed_decompose(plan1, use_kernel=False,
+                                                         device="cuda"))
+        t0 = time.perf_counter()
+        corep, _ = dc_kcore(small, THRESHOLDS, decompose_fn=fnp)
+        plain_s = time.perf_counter() - t0
+        if not (corep == small_oracle).all() or traj1 != [
+                [r.comm_per_iter, r.active_rows_per_iter] for r in resp]:
+            raise AssertionError("distributed 1x1 without the counts kernel: coreness or "
+                                 "per-sweep trajectories differ from the kernel's run")
         log(f"graph rmat({SMALL_SCALE},{EDGE_FACTOR},seed={SEED}): n={small.n_nodes:,} "
             f"m={small.n_edges:,}; one-rank reference {rep1.total_iterations} sweeps in "
-            f"{len(rep1.parts)} parts: CONSISTENT")
+            f"{len(rep1.parts)} parts: CONSISTENT; without the counts kernel "
+            f"({plain_s:.2f}s) the same trajectories: CONSISTENT")
 
         t0 = time.perf_counter()
         procs = []
@@ -729,6 +769,11 @@ def main() -> int:
             raise AssertionError(f"crash-resume phase: no part resumed mid-part {resumed}")
         log(f"crash and resume: crashed at snapshot saves {saves}, resumed parts "
             f"(name, sweep) {resumed}: coreness equal to the uninterrupted run")
+
+        # ---------------- phases 8-10: ingest, overlap, serve ------------- #
+        npz_path = phase_ingest(g, small, work)
+        phase_overlap(g, oracle, work)
+        phase_serve(g, npz_path, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -737,7 +782,7 @@ def main() -> int:
     if bad:
         raise AssertionError(f"JAX or the JAX package was imported: {bad}")
 
-    # ---------------- phase 8: result lines ---------------- #
+    # ---------------- phase 11: result lines ---------------- #
     kernels = [
         {"name": "fused_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused.cu",
@@ -765,6 +810,336 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def same_csr(a, b) -> bool:
+    """Bit-identical CSR graphs: node count, indptr and indices (dtypes
+    included)."""
+    import numpy as np
+
+    return (a.n_nodes == b.n_nodes and a.indptr.dtype == b.indptr.dtype
+            and a.indices.dtype == b.indices.dtype
+            and np.array_equal(a.indptr, b.indptr) and np.array_equal(a.indices, b.indices))
+
+
+def phase_ingest(g, small, work: Path) -> Path:
+    """Phase 8: stream ``g`` through the spill-to-disk builder and the npz
+    round trip, and ``small`` through the SNAP text path; every CSR
+    bit-identical. Returns the npz of ``g``."""
+    from repro_torch.graph.io import (csr_from_edge_chunks, graph_edge_chunks, load_npz,
+                                      save_edgelist, save_npz, stream_edgelist)
+
+    chunk = 1 << 20
+    t0 = time.perf_counter()
+    streamed, st = csr_from_edge_chunks(graph_edge_chunks(g, chunk), n_nodes=g.n_nodes,
+                                        chunk_edges=chunk, workdir=str(work / "spill"))
+    stream_s = time.perf_counter() - t0
+    if not same_csr(streamed, g):
+        raise AssertionError("ingest: the streamed CSR differs from the in-memory one")
+    del streamed
+    log(f"ingest, re-streamed rmat({SCALE},{EDGE_FACTOR}) in {chunk:,}-edge chunks: "
+        f"{stream_s:.1f}s, {st.n_chunks} chunks, {st.n_bins} dedup bins, spill "
+        f"{st.spill_bytes:,} bytes; peak transient host bytes {st.peak_transient_bytes:,} "
+        f"against the in-memory loader's {st.baseline_transient_bytes:,}; resident output "
+        f"CSR {st.output_bytes:,} bytes: bit-identical")
+    if st.peak_transient_bytes >= st.baseline_transient_bytes:
+        raise AssertionError("ingest: the streamed build held more transient bytes than "
+                             "the in-memory loader")
+    npz_path = work / f"rmat{SCALE}.npz"
+    t0 = time.perf_counter()
+    save_npz(str(npz_path), g)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not same_csr(load_npz(str(npz_path)), g):
+        raise AssertionError("ingest: the npz round trip changed the graph")
+    log(f"ingest, npz: save_npz {save_s:.1f}s ({npz_path.stat().st_size:,} bytes), "
+        f"load_npz {time.perf_counter() - t0:.1f}s: bit-identical")
+    # The text path parses one line at a time in Python: 68 s at rmat(20,16)
+    # on the card's host, so it runs at rmat(16,16), which exercises the
+    # same code (several chunks, several dedup bins) in a few seconds.
+    txt = work / f"rmat{SMALL_SCALE}.txt"
+    t0 = time.perf_counter()
+    save_edgelist(str(txt), small)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from_text, tst = stream_edgelist(str(txt), n_nodes=small.n_nodes, chunk_edges=1 << 18,
+                                     workdir=str(work / "spill_text"))
+    if not same_csr(from_text, small) or tst.n_chunks < 2 or tst.n_bins < 2:
+        raise AssertionError("ingest: the edge list streamed back differs from the graph")
+    log(f"ingest, SNAP text path at rmat({SMALL_SCALE},{EDGE_FACTOR}): save_edgelist "
+        f"{save_s:.1f}s ({txt.stat().st_size:,} bytes), stream_edgelist "
+        f"{time.perf_counter() - t0:.1f}s in {tst.n_chunks} chunks of {1 << 18:,} edges, "
+        f"{tst.n_bins} dedup bins (peak transient {tst.peak_transient_bytes:,} bytes): "
+        f"bit-identical")
+    txt.unlink()
+    return npz_path
+
+
+def phase_overlap(g, oracle, work: Path) -> None:
+    """Phase 9: the overlapped pipeline against the sequential one on the
+    card, and an overlapped run whose async checkpoints restore."""
+    import threading
+
+    import torch
+    from repro_torch.core.dckcore import PipelineState, dc_kcore
+    from repro_torch.kernels.fused import fused_sweep_op
+
+    cores = {}
+    fused_sweep_op.launches = 0
+    for strategy in ("rough", "exact"):
+        for overlap in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            core, rep = dc_kcore(g, THRESHOLDS, strategy=strategy, engine="fused",
+                                 device="cuda", overlap=overlap)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ok = bool((core == oracle).all())
+            cores[strategy, overlap] = core
+            log(f"overlap {'on ' if overlap else 'off'} {strategy:>5} thresholds="
+                f"{list(THRESHOLDS)}: wall {wall:.2f}s (sweeping "
+                f"{rep.total_decompose_time_s:.2f}s), idle fraction {rep.idle_fraction:.3f}, "
+                f"prefetch hits {rep.prefetch_hits} misses {rep.prefetch_misses}, prefetched "
+                f"parts {[p.name for p in rep.parts if p.prefetched]}, sweeps "
+                f"{rep.total_iterations}: {'CONSISTENT' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"overlap {overlap} {strategy}: coreness != oracle")
+            if overlap and strategy == "exact" and (rep.prefetch_misses or not rep.prefetch_hits):
+                raise AssertionError(f"overlap exact: {rep.prefetch_hits} prefetch hits, "
+                                     f"{rep.prefetch_misses} misses (Exact-Divide must hit)")
+        if cores[strategy, True].tobytes() != cores[strategy, False].tobytes():
+            raise AssertionError(f"overlap {strategy}: coreness not byte-identical to the "
+                                 f"sequential run's")
+    ck = work / "ck_overlap"
+    core, rep = dc_kcore(g, THRESHOLDS, strategy="rough", engine="fused", device="cuda",
+                         overlap=True, checkpoint_dir=str(ck))
+    launches = fused_sweep_op.launches
+    state = PipelineState.restore(str(ck), g.n_nodes)
+    if state is None or not state.complete or state.coreness.tobytes() != core.tobytes():
+        raise AssertionError("overlap with checkpoints: the latest checkpoint does not "
+                             "restore to the run's coreness")
+    if core.tobytes() != cores["rough", False].tobytes():
+        raise AssertionError("overlap with checkpoints: coreness differs")
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(("dckcore-prefetch", "ckpt-save"))]
+    if alive or launches <= 0:
+        raise AssertionError(f"overlap: threads left {alive}, fused launches {launches}")
+    log(f"overlap on with async checkpoints: wall {rep.total_time_s:.2f}s, blocked on saves "
+        f"{rep.total_save_time_s:.3f}s, completed writes {rep.total_save_wall_s:.3f}s, idle "
+        f"fraction {rep.idle_fraction:.3f}; the latest checkpoint (step of "
+        f"{state.parts_done} parts, complete) restores to the same coreness; fused launches "
+        f"on the overlap path {launches:,}")
+
+
+def _serve_batches(g0, seed):
+    """The edit batches of phase 10, drawn from ``np.random.default_rng(seed)``
+    as ``tests/test_incremental.py::_random_batch`` draws them: uniform node
+    pairs to insert, and existing edges to delete (a uniform node of nonzero
+    degree, then a uniform neighbour) of the graph as it stands before the
+    batch. A generator: send it each batch's resulting graph."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = g0
+    for n_ins, n_del in SERVE_BATCHES:
+        n = g.n_nodes
+        iu, iv = rng.integers(0, n, n_ins), rng.integers(0, n, n_ins)
+        nz = np.nonzero(np.diff(g.indptr) > 0)[0]
+        rows = nz[rng.integers(0, nz.size, n_del)] if n_del else np.zeros(0, np.int64)
+        du, dv = [], []
+        for r in rows.tolist():
+            du.append(r)
+            dv.append(int(g.indices[rng.integers(g.indptr[r], g.indptr[r + 1])]))
+        g = yield iu, iv, np.asarray(du, np.int64), np.asarray(dv, np.int64)
+
+
+def phase_serve(g, npz_path: Path, work: Path) -> None:
+    """Phase 10: the serve path on the card. This thread writes the edit log
+    batch by batch while it replays it through the fused engine (each batch
+    checked against a from-scratch fused decompose); a second thread replays
+    it through the h-index engine and the serve CLI tails it in a
+    subprocess, both as the batches are sealed."""
+    import threading
+
+    import numpy as np
+    import torch
+    import repro_torch.core.incremental as incremental
+    from repro_torch.core.decompose import decompose
+    from repro_torch.core.hindex import hindex_of_sequence
+    from repro_torch.graph.build import bucketize
+    from repro_torch.graph.editlog import EditLog, EditLogReader
+    from repro_torch.graph.oracle import peel_coreness
+    from repro_torch.kernels.fused import fused_sweep_op, fused_sweep_plain
+    from repro_torch.kernels.hindex import hindex_op, hindex_plain
+
+    n_batches = len(SERVE_BATCHES)
+    log_dir = work / "editlog"
+    boot = decompose(bucketize(g), op="fused", device="cuda").coreness
+    # The starting state of the first incremental re-sweep: the real
+    # decompose runs, its arguments are kept.
+    captured = []
+    real_decompose = incremental.decompose
+
+    def capturing(bg, **kw):
+        if kw.get("seed_nodes") is not None and not captured:
+            captured.append((bg, np.array(kw["init_coreness"]), np.asarray(kw["seed_nodes"])))
+        return real_decompose(bg, **kw)
+
+    fresh = [None] * n_batches  # the from-scratch fused coreness after each batch
+    fresh_ready = [threading.Event() for _ in range(n_batches)]
+    abort = threading.Event()
+    deadline = time.monotonic() + FLEET_TIMEOUT_S
+
+    def replay(op, writer=None):
+        """Fold the log's batches through apply_updates on the card, each
+        checked against the from-scratch result. With ``writer`` (the fused
+        run) draw each batch, write it to the log, and compute that result.
+        Returns (final graph, final coreness, modes, update-path launches);
+        a kernel's launches are counted around apply_updates only, and each
+        counter is moved by one thread only."""
+        graph, core, modes, launched = g, boot, [], 0
+        counter = fused_sweep_op if op == "fused" else hindex_op
+        reader = EditLogReader(str(log_dir))
+        batches = _serve_batches(g, SEED) if writer is not None else None
+        edits = next(batches) if batches is not None else None
+        for b in range(n_batches):
+            if writer is not None:
+                writer.append(edits[0], edits[1])
+                writer.append(edits[2], edits[3], delete=True)
+                writer.seal_batch()
+            while reader.poll() == 0:
+                if abort.is_set() or time.monotonic() > deadline:
+                    raise AssertionError(f"serve {op}: batch {b} was never sealed")
+                time.sleep(0.05)
+            batch = reader.read_batch()
+            before = counter.launches
+            res = incremental.apply_updates(graph, core, batch, op=op, device="cuda")
+            launched += counter.launches - before
+            graph, core = res.graph, res.coreness
+            modes.append(res.mode)
+            split = " ".join(f"{k} {v:.3f}s" for k, v in res.stage_s.items())
+            sweeps = res.decompose_result.iterations if res.decompose_result else 0
+            log(f"serve {op:>6} batch {b}: {batch.n_raw:,} raw edits ({res.n_inserted:,} "
+                f"inserted, {res.n_deleted:,} deleted), mode {res.mode}, dirty fraction "
+                f"{res.dirty_frac:.4f} ({res.dirty_count:,} nodes), {sweeps} sweeps, wall "
+                f"{res.wall_time_s:.3f}s = {split}")
+            if writer is not None:
+                fresh[b] = decompose(bucketize(graph), op="fused", device="cuda").coreness
+                fresh_ready[b].set()
+                if b + 1 < n_batches:
+                    edits = batches.send(graph)
+            elif not fresh_ready[b].wait(timeout=max(1.0, deadline - time.monotonic())):
+                raise AssertionError(f"serve {op}: no from-scratch result for batch {b}")
+            if not np.array_equal(core, fresh[b]):
+                raise AssertionError(f"serve {op} batch {b}: coreness != a from-scratch fused "
+                                     f"decompose")
+        if launched <= 0:
+            raise AssertionError(f"serve {op}: the kernel never launched on the update path")
+        if not {"incremental", "full"} <= set(modes):
+            raise AssertionError(f"serve {op}: update modes {modes} (both must occur)")
+        return graph, core, modes, launched
+
+    kernel_run = {}
+
+    def kernel_replay():
+        try:
+            kernel_run["result"] = replay("kernel")
+        except BaseException as exc:  # re-raised by the main thread
+            kernel_run["error"] = exc
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli_out = open(work / "serve_cli.log", "w+")
+    t_serve = time.perf_counter()
+    incremental.decompose = capturing
+    with EditLog(str(log_dir)) as writer:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.kcore_serve", "--graph",
+             f"npz:{npz_path}", "--device", "cuda", "--engine", "fused", "--edit-log",
+             str(log_dir), "--max-batches", str(n_batches), "--idle-timeout-s",
+             str(FLEET_TIMEOUT_S), "--json"],
+            stdout=cli_out, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+        worker = threading.Thread(target=kernel_replay, name="smoke-serve-kernel")
+        worker.start()
+        try:
+            fused = replay("fused", writer)
+            worker.join(timeout=max(1.0, deadline - time.monotonic()))
+            cli.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            abort.set()
+            worker.join(timeout=60)
+            incremental.decompose = real_decompose
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+            cli_out.seek(0)
+            cli_text = cli_out.read()
+            cli_out.close()
+    serve_s = time.perf_counter() - t_serve
+    if "error" in kernel_run:
+        raise kernel_run["error"]
+    kernel = kernel_run["result"]
+    final_graph, final_core = fused[0], fused[1]
+    if not same_csr(final_graph, kernel[0]):
+        raise AssertionError("serve: the two engines' final graphs differ")
+    t0 = time.perf_counter()
+    if not np.array_equal(final_core, peel_coreness(final_graph)):
+        raise AssertionError("serve: the final graph's coreness != the oracle")
+    log(f"serve in process ({serve_s:.1f}s for both replays beside the CLI): every batch "
+        f"equal to a from-scratch fused decompose, the final graph (n={final_graph.n_nodes:,} "
+        f"m={final_graph.n_edges:,}) equal to the oracle ({time.perf_counter() - t0:.1f}s); "
+        f"modes {fused[2]}; update-path launches fused_sweep={fused[3]:,} (fused engine), "
+        f"hindex={kernel[3]:,} (h-index engine)")
+    if cli.returncode != 0:
+        log(cli_text[-6000:])
+        raise AssertionError(f"serve CLI exited {cli.returncode}")
+    m = json.loads(cli_text.strip().splitlines()[-1])
+    if (m["batches_drained"] != n_batches or m["final_n_nodes"] != final_graph.n_nodes
+            or m["final_k_max"] != int(final_core.max())
+            or m["update_modes"] != {mode: fused[2].count(mode) for mode in set(fused[2])}
+            or m["kernel_launches"]["fused_sweep"] <= 0 or m["device"] != "cuda"):
+        raise AssertionError(f"serve CLI: unexpected metrics {m}")
+    log(f"serve CLI (--device cuda --engine fused, tailing the log as it was written): "
+        f"{m['batches_drained']} batches, modes {m['update_modes']}, updates/s "
+        f"{m['updates_per_s']:.1f}, publishes/s {m['publishes_per_s']:.3f}, "
+        f"{m['n_queries']:,} queries, query p50 {m['query_p50_ms']:.4f} ms p99 "
+        f"{m['query_p99_ms']:.4f} ms, staleness mean {m['staleness_mean_edits']:.1f} / max "
+        f"{m['staleness_max_edits']:.0f} pending edits, max snapshot age "
+        f"{m['staleness_max_age_s']:.2f}s, fused launches on its update path "
+        f"{m['kernel_launches']['fused_sweep']:,}")
+
+    # The kernels at an incremental re-sweep's starting state.
+    if not captured:
+        raise AssertionError("serve: no incremental re-sweep was captured")
+    bg, init, seeds = captured[0]
+    dev = torch.device("cuda")
+    n = bg.n_nodes
+    c = torch.cat([torch.from_numpy(init.astype(np.int32)),
+                   torch.full((1,), -1, dtype=torch.int32)]).to(dev)
+    ext_pad = torch.cat([torch.as_tensor(np.asarray(bg.ext), dtype=torch.int32),
+                         torch.zeros(1, dtype=torch.int32)]).to(dev)
+    cand = max(1, hindex_of_sequence(bg.degrees.astype(np.int64) + bg.ext))
+    seed_ids = np.nonzero(seeds)[0] if seeds.dtype == bool else seeds
+    owner = bg.node_bucket_map()[:-1][seed_ids]
+    active = sorted(set(int(o) for o in owner if o >= 0))
+    err = {"fused": 0, "hindex": 0}
+    for b in bg.buckets:
+        ids = torch.as_tensor(b.node_ids).to(dev)
+        neigh = torch.as_tensor(b.neigh).to(dev)
+        for track in (True, False):
+            want = fused_sweep_plain(c, ext_pad, ids, neigh, cand=cand, track_dirty=track)
+            got = fused_sweep_op(c, ext_pad, ids, neigh, cand=cand, track_dirty=track)
+            err["fused"] = max(err["fused"], max(int((x.long() - y.long()).abs().max())
+                                                 for x, y in zip(got, want)))
+        x, e = c[neigh], ext_pad[ids]
+        err["hindex"] = max(err["hindex"], int((hindex_op(x, e, cand=cand).long()
+                                                - hindex_plain(x, e, cand=cand).long())
+                                               .abs().max()))
+    log(f"kernels at an incremental re-sweep's starting state ({len(bg.buckets)} tiles, "
+        f"{seed_ids.size:,} seeded nodes in {len(active)} active tiles, n={n:,}, "
+        f"cand={cand}): fused (push on and off) and hindex against their plain versions on "
+        f"every tile, max abs err fused={err['fused']} hindex={err['hindex']} (tolerance 0)")
+    if err["fused"] or err["hindex"]:
+        raise AssertionError(f"kernels at the re-sweep state != plain versions: {err}")
 
 
 def fleet_rank(rank: int, work: str) -> int:

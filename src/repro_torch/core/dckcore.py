@@ -19,6 +19,29 @@ passes run chunked over CSR row ranges (``divide_chunk`` adjacency slots),
 so their host transient is bounded by the chunk budget, and each part
 reports its observed peak.
 
+**Overlapped pipeline.** With ``overlap=True`` one worker thread (named
+``dckcore-prefetch``) runs the *next* part's divide passes, reorder and
+bucketize -- numpy only, it makes no CUDA call, so the conquer stream is
+the only one in use -- while the current part sweeps on the device, and the
+checkpoint saves go through the managers' async threads. The prefetch is
+speculative: the worker assumes every candidate of the conquering part
+finalizes (exact by construction for Exact-Divide, a bet for Rough). After
+the conquer the bet is checked against the actual finalized set: on a hit
+the prefetched shrink and next plan are adopted (byte-identical to the
+sequential fold, every divide pass being deterministic); on a miss they are
+discarded and recomputed synchronously. Coreness is byte-identical with the
+flag on or off. The worker only ever reads the graph and ``ext`` it was
+handed; the main thread rebinds its state to fresh arrays instead of
+mutating them. ``close()`` joins the worker and drains both managers on
+every exit path, a crash included.
+
+**Fault injection.** ``fault_plan`` (a
+:class:`~repro_torch.runtime.FaultPlan`) is visited at the pipeline's named
+sites: ``prefetch`` (the worker's task), ``boundary_fold`` (every E(v)
+fold, sequential and speculative) and ``checkpoint_save`` (every boundary
+save). A fault there is fail-fast, like a real crash: the run drains and
+re-raises, and recovery is the resume path.
+
 **Per-part checkpoints.** With ``checkpoint_dir`` set, the host state
 between parts (:class:`PipelineState`: coreness, the finalized mask, ``ext``
 of the remaining nodes, the remaining-id map, the threshold cursor and the
@@ -39,13 +62,14 @@ The on-disk format is the JAX package's, so a checkpoint directory written
 by ``repro.core.dckcore`` resumes here and the other way round.
 
 This is the port of the JAX package's ``repro.core.dckcore`` on its
-sequential path; the per-part reports are field-for-field the same. The
-overlapped prefetch pipeline, part-parallel waves and the fault-tolerance
-layer are later slices of the port (``ROADMAP.md``, "Modules to port");
-their options raise :class:`NotImplementedError` here.
+sequential and overlapped paths; the per-part reports are field-for-field
+the same. Part-parallel waves and their watchdog are a later slice of the
+port (``ROADMAP.md``, queue 1, item 7); their options raise
+:class:`NotImplementedError` here.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import logging
 import os
@@ -69,6 +93,10 @@ from repro_torch.graph.structs import BucketedGraph, Graph
 
 STATE_FORMAT = 1
 SWEEP_FORMAT = 1
+
+# The prefetch worker thread carries this name prefix; the test suite
+# asserts none outlive a test (a leaked thread = a missing close()).
+PREFETCH_THREAD_PREFIX = "dckcore-prefetch"
 
 
 class MergeIncompleteError(RuntimeError):
@@ -141,6 +169,9 @@ class DCKCoreReport:
     total_time_s: float
     preprocess_time_s: float
     resumed_parts: int = 0  # parts restored from checkpoint, not re-run
+    overlap: bool = False     # divide/checkpoint overlapped with conquer?
+    prefetch_hits: int = 0    # speculative shrinks adopted
+    prefetch_misses: int = 0  # speculative shrinks discarded + recomputed
     # Checkpoint steps quarantined as corrupt during restore, and their
     # records ({"event": "quarantine", ...}).
     quarantined_steps: int = 0
@@ -175,12 +206,14 @@ class DCKCoreReport:
 
     @property
     def total_save_time_s(self) -> float:
-        """Wall time the pipeline was blocked on per-part checkpoint saves."""
+        """Wall time the pipeline was blocked on per-part checkpoint saves
+        (the full save cost when saves block; near zero when async)."""
         return sum(p.save_time_s for p in self.parts)
 
     @property
     def total_save_wall_s(self) -> float:
-        """Wall time of the completed per-part saves."""
+        """Wall time of the completed per-part saves, whether or not the
+        pipeline waited for them."""
         return sum(p.save_wall_s for p in self.parts)
 
     @property
@@ -191,7 +224,8 @@ class DCKCoreReport:
     @property
     def idle_fraction(self) -> float:
         """Fraction of the run's wall clock the device spent NOT sweeping
-        (divide passes, bucketize, merge)."""
+        (divide passes, bucketize, checkpoint saves, merge) -- the stall
+        metric ``overlap=True`` exists to shrink."""
         if self.total_time_s <= 0:
             return 0.0
         return max(0.0, 1.0 - self.total_decompose_time_s / self.total_time_s)
@@ -249,20 +283,25 @@ class PipelineState:
             "reports": [dataclasses.asdict(p) for p in self.reports],
         }
 
-    def save(self, manager,
+    def save(self, manager, blocking: bool = True,
              on_done: Optional[Callable[[int, float], None]] = None) -> float:
-        """Blocking atomic save at the current part boundary through
-        ``manager`` (a :class:`~repro_torch.ckpt.CheckpointManager`, which
-        keeps its ``retain`` newest steps); returns its wall seconds.
+        """Atomic save at the current part boundary through ``manager`` (a
+        :class:`~repro_torch.ckpt.CheckpointManager`, which keeps its
+        ``retain`` newest steps); returns the seconds the caller was
+        blocked (the whole save when ``blocking``, else waiting out the
+        previous save plus the by-value copy).
 
         Step number = parts completed so far (the rest part counts one
         past the last threshold), so ``latest_step`` is the cursor. A
         part's own save time is known only after its save, so it is
-        persisted one boundary later."""
+        persisted one boundary later. The previous save is waited out
+        before ``extra()`` serializes the reports, so its ``on_done``
+        stamp always lands first."""
         t0 = time.perf_counter()
+        manager.wait()
         step = self.parts_done + (1 if self.complete else 0)
         manager.save(self.arrays(), step, extra=self.extra(),
-                     blocking=True, on_done=on_done)
+                     blocking=blocking, on_done=on_done)
         return time.perf_counter() - t0
 
     @staticmethod
@@ -356,9 +395,10 @@ class SweepSnapshot:
     def step(self) -> int:
         return self.parts_done * SweepSnapshot._PART_STRIDE + self.sweep
 
-    def save(self, manager) -> float:
-        """Blocking save of the snapshot through ``manager``; returns its
-        wall seconds."""
+    def save(self, manager, blocking: bool = True) -> float:
+        """Save the snapshot through ``manager``; returns the seconds the
+        caller was blocked (async on the overlapped pipeline: the write
+        runs on the manager's thread while the part keeps sweeping)."""
         t0 = time.perf_counter()
         extra = {
             "format": SWEEP_FORMAT,
@@ -371,7 +411,7 @@ class SweepSnapshot:
         }
         manager.save(
             {"part_coreness": np.asarray(self.coreness, dtype=np.int32)},
-            self.step, extra=extra, blocking=True,
+            self.step, extra=extra, blocking=blocking,
         )
         return time.perf_counter() - t0
 
@@ -452,6 +492,9 @@ class PartPlan:
     ``threshold is None`` marks the final "rest" part (everything left,
     no candidate mask). ``part_g is None`` marks an *empty* threshold part
     (no candidates at this threshold -- the cursor advances, nothing runs).
+    ``speculative`` records that the plan was built by the prefetch worker
+    on the *predicted* remaining graph; it is only ever executed after the
+    prediction was validated.
     """
 
     cursor: int
@@ -460,10 +503,12 @@ class PartPlan:
     part_g: Optional[Graph]
     part_local_ids: Optional[np.ndarray]
     part_ext: Optional[np.ndarray]
+    cand_mask: Optional[np.ndarray]
     dstats: DivideStats
     extract_time_s: float
     bg: Optional[BucketedGraph] = None
     bucketize_time_s: float = 0.0
+    speculative: bool = False
 
     @property
     def is_rest(self) -> bool:
@@ -474,9 +519,33 @@ class PartPlan:
         return self.part_g is None
 
 
+@dataclasses.dataclass
+class _Prefetch:
+    """Prefetch-worker output: the speculative shrink of the remaining
+    graph (assuming every candidate of part ``base_cursor`` finalizes)
+    plus, when there is one, the next part's plan built on that shrink."""
+
+    base_cursor: int
+    shrink_graph: Graph
+    shrink_keep_ids: np.ndarray   # remaining-local ids kept by the shrink
+    ext_next: np.ndarray          # ext of the kept nodes after the fold
+    shrink_stats: DivideStats
+    shrink_time_s: float
+    plan: Optional[PartPlan] = None
+
+
 class _PartPipeline:
-    """The sequential scheduler behind :func:`dc_kcore`: divide, conquer,
-    merge, shrink and checkpoint, one part at a time."""
+    """The scheduler behind :func:`dc_kcore`: divide, conquer, merge, shrink
+    and checkpoint, one part at a time, with the next part's divide
+    prefetched on a worker thread when ``overlap`` is on.
+
+    The main thread owns ``state`` and the conquer stage; the (optional,
+    single) prefetch worker only reads the graph and ``ext`` passed to it
+    at submit time -- the main thread rebinds ``state.ext_remaining`` /
+    ``state.remaining_ids`` / ``self.remaining_graph`` to fresh arrays
+    instead of mutating them. ``close()`` drains the worker and both
+    checkpoint managers on every exit path.
+    """
 
     def __init__(
         self, *,
@@ -496,6 +565,8 @@ class _PartPipeline:
         pending_snap: Optional[SweepSnapshot] = None,
         state_mgr=None,
         sweeps_mgr=None,
+        overlap: bool = False,
+        fault_plan=None,
     ):
         self.state = state
         self.remaining_graph = remaining_graph
@@ -513,15 +584,35 @@ class _PartPipeline:
         self.pending_snap = pending_snap
         self.state_mgr = state_mgr
         self.sweeps_mgr = sweeps_mgr
+        self.overlap = overlap
+        self.fault_plan = fault_plan
         self.parts: List[PartReport] = state.reports
         self.preprocess_time_s = 0.0
+        self.prefetch_hits = 0
+        self.prefetch_misses = 0
+        self._future: Optional[concurrent.futures.Future] = None
+        self._executor: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        if overlap:
+            self._executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix=PREFETCH_THREAD_PREFIX
+            )
+
+    def _visit_fault(self, site: str, **ctx) -> None:
+        """Chaos hook: consult the fault plan at a named site (no-op
+        without one). These sites are fail-fast: a fault kills the run
+        like a real crash, and recovery is the resume path."""
+        if self.fault_plan is not None:
+            self.fault_plan.visit(site, **ctx)
 
     # ---------------- divide stage ---------------- #
     def _fresh_stats(self) -> DivideStats:
         return DivideStats(chunk_slots=_resolve_chunk_slots(self.divide_chunk))
 
-    def _plan_on(self, graph: Graph, ext: np.ndarray, cursor: int) -> Optional[PartPlan]:
-        """Divide: plan the part at ``cursor`` on ``graph``/``ext``."""
+    def _plan_on(self, graph: Graph, ext: np.ndarray, cursor: int,
+                 speculative: bool = False) -> Optional[PartPlan]:
+        """Divide: plan the part at ``cursor`` on ``graph``/``ext``. Pure --
+        runs on the main thread, or on the prefetch worker
+        (``speculative=True``, on the predicted shrink)."""
         if cursor < len(self.thresholds):
             t = self.thresholds[cursor]
             dstats = self._fresh_stats()
@@ -533,8 +624,8 @@ class _PartPipeline:
                 return PartPlan(
                     cursor=cursor, name=f"core>={t}", threshold=t,
                     part_g=None, part_local_ids=None, part_ext=None,
-                    dstats=dstats,
-                    extract_time_s=extract_time,
+                    cand_mask=cand_mask, dstats=dstats,
+                    extract_time_s=extract_time, speculative=speculative,
                 )
             t0 = time.perf_counter()
             part_g, part_local_ids = induced_subgraph(
@@ -545,8 +636,8 @@ class _PartPipeline:
             return PartPlan(
                 cursor=cursor, name=f"core>={t}", threshold=t,
                 part_g=part_g, part_local_ids=part_local_ids,
-                part_ext=part_ext, dstats=dstats,
-                extract_time_s=extract_time,
+                part_ext=part_ext, cand_mask=cand_mask, dstats=dstats,
+                extract_time_s=extract_time, speculative=speculative,
             )
         # Final (bottom) part: everything left.
         if graph.n_nodes == 0:
@@ -554,8 +645,8 @@ class _PartPipeline:
         return PartPlan(
             cursor=cursor, name="rest", threshold=None,
             part_g=graph, part_local_ids=None, part_ext=ext,
-            dstats=self._fresh_stats(),
-            extract_time_s=0.0,
+            cand_mask=None, dstats=self._fresh_stats(),
+            extract_time_s=0.0, speculative=speculative,
         )
 
     def _build_plan(self, cursor: int) -> Optional[PartPlan]:
@@ -566,7 +657,9 @@ class _PartPipeline:
 
     def _bucketize(self, plan: PartPlan) -> None:
         """Reorder + bucketize the part -- the device-layout half of the
-        divide stage."""
+        divide stage (numpy; prefetched plans arrive with ``bg`` built)."""
+        if plan.bg is not None or plan.part_g is None:
+            return
         t0 = time.perf_counter()
         # Reorder the part, not the whole graph: each part is a fresh id
         # space, and locality only has to hold within the tiles actually
@@ -581,6 +674,72 @@ class _PartPipeline:
             max_bucket_rows=self.max_bucket_rows,
         )
         plan.bucketize_time_s = time.perf_counter() - t0
+
+    # ---------------- prefetch stage ---------------- #
+    def _submit_prefetch(self, plan: PartPlan) -> None:
+        """Speculate past ``plan``'s conquer on the worker thread: shrink
+        the remaining graph as if EVERY candidate finalizes and build the
+        next part's plan on the predicted shrink. The worker gets the
+        current array references; the main thread only ever rebinds them."""
+        if self._executor is None or plan.is_rest or plan.is_empty:
+            return
+        if self._future is not None:
+            raise RuntimeError("a prefetch is already in flight")
+        self._future = self._executor.submit(
+            self._prefetch_task,
+            self.remaining_graph, self.state.ext_remaining,
+            plan.cand_mask, plan.cursor,
+        )
+
+    def _fold_external(self, graph: Graph, keep_local: np.ndarray,
+                       upper_local: np.ndarray, stats: DivideStats) -> np.ndarray:
+        """E(v) boundary fold on the host. Only ever called from the thread
+        that owns ``stats``. (The JAX package's device fold over a global
+        mesh plan serves part-parallel conquer, a later slice.)"""
+        self._visit_fault("boundary_fold", n_nodes=int(graph.n_nodes))
+        return external_info(
+            graph, keep_local, upper_local,
+            chunk_slots=self.divide_chunk, stats=stats,
+        )
+
+    def _speculative_shrink(self, graph: Graph, ext: np.ndarray,
+                            cand_mask: np.ndarray, cursor: int) -> _Prefetch:
+        """Shrink ``graph`` as if EVERY candidate of part ``cursor``
+        finalizes."""
+        t0 = time.perf_counter()
+        stats = self._fresh_stats()
+        keep_local = ~cand_mask
+        ext_delta = self._fold_external(graph, keep_local, cand_mask, stats)
+        shrink_graph, keep_ids = induced_subgraph(
+            graph, keep_local, chunk_slots=self.divide_chunk, stats=stats
+        )
+        ext_next = ext[keep_local] + ext_delta
+        return _Prefetch(
+            base_cursor=cursor, shrink_graph=shrink_graph,
+            shrink_keep_ids=keep_ids, ext_next=ext_next,
+            shrink_stats=stats, shrink_time_s=time.perf_counter() - t0,
+        )
+
+    def _prefetch_task(self, graph: Graph, ext: np.ndarray,
+                       cand_mask: np.ndarray, cursor: int) -> _Prefetch:
+        """The worker's task: numpy and bucketize only, no CUDA call."""
+        self._visit_fault("prefetch", cursor=cursor)
+        pf = self._speculative_shrink(graph, ext, cand_mask, cursor)
+        pf.plan = self._plan_on(
+            pf.shrink_graph, pf.ext_next, cursor + 1, speculative=True
+        )
+        if pf.plan is not None:
+            self._bucketize(pf.plan)
+        return pf
+
+    def _take_prefetch(self, cursor: int) -> Optional[_Prefetch]:
+        """Join the in-flight prefetch (if any). Worker failures re-raise
+        here -- a broken divide pass is a real failure, not a missed bet."""
+        if self._future is None:
+            return None
+        fut, self._future = self._future, None
+        pf = fut.result()
+        return pf if pf.base_cursor == cursor else None
 
     # ---------------- conquer stage ---------------- #
     def _conquer(self, plan: PartPlan):
@@ -622,7 +781,7 @@ class _PartPipeline:
                     coreness=c, parts_done=plan.cursor, sweep=start_sweep + it,
                     n_part=plan.part_g.n_nodes, threshold=plan.threshold,
                     thresholds=state.thresholds, fingerprint=state.fingerprint,
-                ).save(self.sweeps_mgr)
+                ).save(self.sweeps_mgr, blocking=not self.overlap)
                 last["c"] = c
                 if self.on_sweep_saved is not None:
                     self.on_sweep_saved(plan.cursor, start_sweep + it, save_s)
@@ -656,6 +815,7 @@ class _PartPipeline:
             collective_bytes=res.collective_bytes,
             bitmap_density=density,
             resumed_at_sweep=start_sweep,
+            prefetched=plan.speculative,
         )
 
     def _finalize_threshold(self, plan: PartPlan, res, density: float,
@@ -675,17 +835,45 @@ class _PartPipeline:
         return report, final_local
 
     def _shrink(self, plan: PartPlan, final_local: np.ndarray,
-                report: PartReport) -> None:
-        """Fold the part's ACTUALLY finalized nodes out of the remaining
-        graph: E(v) of the kept nodes grows by their finalized neighbors."""
+                report: PartReport) -> Optional[PartPlan]:
+        """Fold the finalized nodes out of the remaining graph. Adopts the
+        speculative shrink when the prediction held (byte-identical: the
+        masks coincide and every divide pass is deterministic); otherwise
+        discards it and recomputes synchronously, exactly as the
+        sequential path. Returns the prefetched next plan on a hit."""
+        pf = self._take_prefetch(plan.cursor)
+        if pf is not None and bool(final_local.all()):
+            self.prefetch_hits += 1
+            self._adopt_shrink(plan, pf, report)
+            return pf.plan
+        if pf is not None:
+            self.prefetch_misses += 1
+        self._shrink_sync(plan, final_local, report)
+        return None
+
+    def _adopt_shrink(self, plan: PartPlan, pf: _Prefetch,
+                      report: PartReport) -> None:
+        """Adopt a validated speculative shrink."""
+        state = self.state
+        plan.dstats.merge(pf.shrink_stats)
+        state.ext_remaining = pf.ext_next
+        state.remaining_ids = state.remaining_ids[pf.shrink_keep_ids]
+        self.remaining_graph = pf.shrink_graph
+        self.preprocess_time_s += pf.shrink_time_s
+        report.divide_transient_bytes = plan.dstats.peak_transient_bytes
+
+    def _shrink_sync(self, plan: PartPlan, final_local: np.ndarray,
+                     report: PartReport) -> None:
+        """The sequential fold: shrink the remaining graph by the part's
+        ACTUALLY finalized nodes; E(v) of the kept nodes grows by their
+        finalized neighbors."""
         state = self.state
         t0 = time.perf_counter()
         newly_mask_local = np.zeros(self.remaining_graph.n_nodes, dtype=bool)
         newly_mask_local[plan.part_local_ids[final_local]] = True
         keep_local = ~newly_mask_local
-        ext_delta = external_info(
-            self.remaining_graph, keep_local, newly_mask_local,
-            chunk_slots=self.divide_chunk, stats=plan.dstats,
+        ext_delta = self._fold_external(
+            self.remaining_graph, keep_local, newly_mask_local, plan.dstats
         )
         new_graph, keep_ids = induced_subgraph(
             self.remaining_graph, keep_local,
@@ -720,11 +908,14 @@ class _PartPipeline:
         part's sweep snapshots are purged after the boundary save (a crash
         between the two is caught by snapshot validation)."""
         if self.state_mgr is not None:
+            self._visit_fault("checkpoint_save",
+                              parts_done=int(self.state.parts_done))
             on_done = None
             if report is not None:
                 def on_done(_step, secs, _r=report):
                     _r.save_wall_s = secs
-            blocked = self.state.save(self.state_mgr, on_done=on_done)
+            blocked = self.state.save(self.state_mgr, blocking=not self.overlap,
+                                      on_done=on_done)
             self._purge_sweeps()
             if report is not None:
                 report.save_time_s = blocked
@@ -743,6 +934,7 @@ class _PartPipeline:
                 plan = self._build_plan(plan.cursor + 1)
                 continue
             self._bucketize(plan)
+            self._submit_prefetch(plan)
             res, density, start_sweep = self._conquer(plan)
             if plan.is_rest:
                 self._merge_rest(plan, res, density, start_sweep)
@@ -750,24 +942,47 @@ class _PartPipeline:
                 continue
             report, final_local = self._finalize_threshold(
                 plan, res, density, start_sweep)
-            self._shrink(plan, final_local, report)
+            next_plan = self._shrink(plan, final_local, report)
             state.parts_done = plan.cursor + 1
             self._checkpoint_boundary(report)
-            plan = self._build_plan(plan.cursor + 1)
+            if next_plan is None:
+                next_plan = self._build_plan(plan.cursor + 1)
+            plan = next_plan
         if not state.complete:
             # The shrink emptied the graph before the rest part.
             state.complete = True
             self._checkpoint_boundary(None)
 
+    def close(self, suppress_errors: bool = False) -> None:
+        """Drain the prefetch worker and both checkpoint managers. Runs on
+        EVERY exit path: after a crash-by-exception the pending async saves
+        land before the exception leaves ``dc_kcore``, so the on-disk state
+        at "crash" time is deterministic and no worker thread outlives the
+        call."""
+        if self._future is not None:
+            fut, self._future = self._future, None
+            exc = fut.exception()  # waits; consumes a worker failure
+            if exc is not None and not suppress_errors:
+                raise exc
+        if self._executor is not None:
+            self._executor.shutdown(wait=True)
+            self._executor = None
+        for mgr in (self.state_mgr, self.sweeps_mgr):
+            if mgr is None:
+                continue
+            try:
+                mgr.wait()
+            except BaseException:
+                if not suppress_errors:
+                    raise
+
 
 _LATER_SLICE = {
-    "overlap": "the overlapped prefetch pipeline (ROADMAP.md, queue 1, item 3)",
     "part_parallel": "part-parallel conquer (ROADMAP.md, queue 1, item 7)",
     "part_parallel_plan": "part-parallel conquer (ROADMAP.md, queue 1, item 7)",
     "slice_capacity_bytes": "part-parallel conquer (ROADMAP.md, queue 1, item 7)",
     "slice_timeout_s": "fault-tolerant conquer (ROADMAP.md, queue 1, item 7)",
     "max_retries": "fault-tolerant conquer (ROADMAP.md, queue 1, item 7)",
-    "fault_plan": "fault-tolerant conquer (ROADMAP.md, queue 1, item 7)",
 }
 
 
@@ -834,16 +1049,31 @@ def dc_kcore(
     detected by its per-leaf CRC32 and quarantined to ``step_*.corrupt``,
     falls back to its predecessor).
 
-    ``overlap``, ``part_parallel`` (with its plan and slice capacity),
-    ``slice_timeout_s``, ``max_retries`` and ``fault_plan`` belong to later
-    slices of the port and raise :class:`NotImplementedError`.
+    ``overlap=True`` pipelines the stages: one worker thread runs the next
+    part's divide passes and bucketize (and the shrink of the current
+    remaining graph) while the current part sweeps on the device, and
+    checkpoint saves go through the managers' async threads. The prefetch
+    is speculative -- it assumes every candidate of the conquering part
+    finalizes -- and is validated against the actual finalized set before
+    being adopted, recomputed synchronously on a miss (Exact-Divide always
+    hits). Coreness is **byte-identical** with the flag on or off, resume
+    included; only the wall clock and :attr:`DCKCoreReport.idle_fraction`
+    change. ``on_part_done`` fires after the save is *enqueued* in that
+    mode; a crash raised from it still drains the pending save first.
+
+    ``fault_plan`` (a :class:`repro_torch.runtime.FaultPlan`) injects
+    crashes, hangs and slowdowns into the named sites ``boundary_fold``,
+    ``checkpoint_save`` and ``prefetch``; the run drains its worker and its
+    pending saves, releases injected hangs and re-raises.
+
+    ``part_parallel`` (with its plan and slice capacity),
+    ``slice_timeout_s`` and ``max_retries`` belong to a later slice of the
+    port and raise :class:`NotImplementedError`.
     """
     later = {
-        "overlap": overlap,
         "part_parallel": part_parallel, "part_parallel_plan": part_parallel_plan,
         "slice_capacity_bytes": slice_capacity_bytes,
         "slice_timeout_s": slice_timeout_s, "max_retries": max_retries,
-        "fault_plan": fault_plan,
     }
     for name, value in later.items():
         if value is not None and value is not False:
@@ -914,6 +1144,7 @@ def dc_kcore(
                 total_time_s=time.perf_counter() - t_start,
                 preprocess_time_s=0.0,
                 resumed_parts=resumed_parts,
+                overlap=overlap,
                 quarantined_steps=len(restore_events),
                 fault_events=list(restore_events),
             )
@@ -944,14 +1175,32 @@ def dc_kcore(
         pending_snap=pending_snap,
         state_mgr=state_mgr,
         sweeps_mgr=sweeps_mgr,
+        overlap=overlap,
+        fault_plan=fault_plan,
     )
-    pipeline.run()
+    try:
+        pipeline.run()
+    except BaseException:
+        # Crash-by-exception (the fault-injection hooks included): release
+        # injected hangs, drain the worker and pending saves FIRST, so the
+        # disk state the crashed run leaves is deterministic, then let the
+        # crash propagate.
+        if fault_plan is not None:
+            fault_plan.release()
+        pipeline.close(suppress_errors=True)
+        raise
+    if fault_plan is not None:
+        fault_plan.release()
+    pipeline.close()
 
     report = DCKCoreReport(
         parts=pipeline.parts,
         total_time_s=time.perf_counter() - t_start,
         preprocess_time_s=pipeline.preprocess_time_s,
         resumed_parts=resumed_parts,
+        overlap=overlap,
+        prefetch_hits=pipeline.prefetch_hits,
+        prefetch_misses=pipeline.prefetch_misses,
         quarantined_steps=len(restore_events),
         fault_events=list(restore_events),
     )

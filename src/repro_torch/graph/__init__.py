@@ -1,4 +1,4 @@
-"""Graph substrate: containers, generators, oracles and reordering.
+"""Graph substrate: containers, generators, oracles, reordering and IO.
 
 Numpy copies of the JAX package's ``repro.graph`` modules (that package's
 ``core`` imports JAX, so the port keeps its own copies); they build
@@ -9,6 +9,14 @@ the sweep kernels read.
 from repro_torch.graph.structs import Graph, BucketedGraph, Bucket, from_reference_arrays
 from repro_torch.graph.build import autotune_tile_caps, bucketize, induced_subgraph, external_info
 from repro_torch.graph.generators import erdos_renyi, barabasi_albert, rmat
+from repro_torch.graph.io import (
+    EdgeStore,
+    IngestStats,
+    csr_from_edge_chunks,
+    graph_edge_chunks,
+    iter_edgelist_chunks,
+    stream_edgelist,
+)
 from repro_torch.graph.oracle import peel_coreness
 from repro_torch.graph.reorder import (
     REORDER_METHODS,
@@ -32,6 +40,12 @@ __all__ = [
     "erdos_renyi",
     "barabasi_albert",
     "rmat",
+    "EdgeStore",
+    "IngestStats",
+    "csr_from_edge_chunks",
+    "graph_edge_chunks",
+    "iter_edgelist_chunks",
+    "stream_edgelist",
     "peel_coreness",
     "REORDER_METHODS",
     "bfs_order",

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -32,6 +33,10 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# Held across the check of _LIBS, the build and the CDLL: two threads that
+# launch a kernel first (the serve CLI's update thread and the main one)
+# must build and load each library once.
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -102,11 +107,13 @@ def ptxas_report(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
-    return lib
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    Thread-safe: each library is built and loaded once per process."""
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build([name])
+            lib = _LIBS[name] = ctypes.CDLL(str(path))
+        return lib

@@ -5,10 +5,27 @@
   python -m repro_torch.launch.kcore --graph er:2000:8 --device cpu --check
   python -m repro_torch.launch.kcore --graph rmat:12:8 --thresholds 16,4 \
       --checkpoint-dir ck --sweep-checkpoint-every 1 --resume --check
+  python -m repro_torch.launch.kcore --graph file:/data/com-friendster.txt \
+      --budget-gb 2 --strategy rough --edge-chunk 1048576 --overlap --check
 
-Graphs: ``rmat:<scale>:<edge_factor>``, ``ba:<n>:<m>``, ``er:<n>:<deg>``
-(``file:``/``npz:`` graphs and ``--edge-chunk`` streaming ingest arrive
-with the port's ``graph/io.py``).
+Graphs: ``rmat:<scale>:<edge_factor>``, ``ba:<n>:<m>``, ``er:<n>:<deg>``,
+``file:<path>`` (SNAP edge list), ``npz:<path>`` (``graph.io.save_npz``;
+either package's files load in the other).
+
+``--edge-chunk N`` routes ingest through the streaming path: ``file:``
+graphs are read in N-edge chunks and built via the spill-to-disk external
+dedup (synthetic and ``npz:`` graphs are re-streamed through the same
+builder), and the CLI reports the tracked peak transient host bytes next to
+the in-memory loader's baseline. ``--overlap`` turns on the staged
+pipeline: the next part's divide and bucketize run on a worker thread
+(numpy only) and checkpoint saves go async while the current part sweeps;
+coreness is byte-identical either way, and the summary reports the
+device-idle fraction the flag exists to shrink and the prefetch hits and
+misses. ``--fault site:kind[:at[:count[:delay]]]`` injects failures for
+chaos testing (sites: boundary_fold, checkpoint_save, prefetch; kinds:
+crash, hang, slow); ``--fault-log FILE`` writes the run's fault event
+trail as JSON. The part-parallel flags of the JAX CLI are not ported yet
+(``ROADMAP.md``, queue 1, item 7).
 
 ``--device`` picks where the sweep runs (default ``cuda``; ``cpu`` runs the
 kernels' plain PyTorch versions). ``--engine {sorted,count,kernel,fused}``
@@ -33,34 +50,57 @@ exits 1 on a mismatch. The summary ends with each kernel's launch count.
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 from repro_torch.core.dckcore import dc_kcore
 from repro_torch.core.divide import plan_thresholds
 from repro_torch.graph import barabasi_albert, erdos_renyi, rmat
+from repro_torch.graph.io import (
+    csr_from_edge_chunks,
+    graph_edge_chunks,
+    load_edgelist,
+    load_npz,
+    stream_edgelist,
+)
 from repro_torch.graph.oracle import peel_coreness
 from repro_torch.kernels.fused import fused_sweep_op
 from repro_torch.kernels.hindex import hindex_op
 
 
-def load_graph(spec: str, seed: int):
-    """Build the synthetic graph for ``spec`` (numpy, seeded: the same
-    graph as the JAX package builds from the same spec and seed)."""
+def load_graph(spec: str, seed: int, edge_chunk: int | None = None):
+    """Build the graph for ``spec`` (synthetic specs are numpy and seeded:
+    the same graph as the JAX package builds from the same spec and seed).
+    Returns ``(graph, ingest_stats)``; with ``edge_chunk`` set, ingest runs
+    through the streaming builder and ``ingest_stats`` is its
+    :class:`~repro_torch.graph.io.IngestStats`, else ``None``."""
     kind, _, rest = spec.partition(":")
+    if kind == "file":
+        if edge_chunk is not None:
+            return stream_edgelist(rest, chunk_edges=edge_chunk)
+        return load_edgelist(rest), None
     if kind == "rmat":
         scale, ef = (rest.split(":") + ["16"])[:2]
-        return rmat(int(scale), int(ef), seed=seed)
-    if kind == "ba":
+        g = rmat(int(scale), int(ef), seed=seed)
+    elif kind == "ba":
         n, m = rest.split(":")
-        return barabasi_albert(int(n), int(m), seed=seed)
-    if kind == "er":
+        g = barabasi_albert(int(n), int(m), seed=seed)
+    elif kind == "er":
         n, d = rest.split(":")
-        return erdos_renyi(int(n), float(d), seed=seed)
-    if kind in ("file", "npz"):
-        raise NotImplementedError(
-            f"{kind}: graphs come with the port's graph/io.py (ROADMAP.md, "
-            f"queue 1, item 3)")
-    raise ValueError(f"unknown graph spec {spec}")
+        g = erdos_renyi(int(n), float(d), seed=seed)
+    elif kind == "npz":
+        g = load_npz(rest)
+    else:
+        raise ValueError(f"unknown graph spec {spec}")
+    if edge_chunk is not None:
+        # Re-stream the in-memory graph through the chunked builder so the
+        # streaming path (and its resident-bytes accounting) is exercised
+        # for synthetic specs too.
+        return csr_from_edge_chunks(
+            graph_edge_chunks(g, edge_chunk), n_nodes=g.n_nodes,
+            chunk_edges=edge_chunk,
+        )
+    return g, None
 
 
 def parse_max_bucket_rows(v: str):
@@ -98,6 +138,9 @@ def main(argv=None):
     ap.add_argument("--max-bucket-rows", type=parse_max_bucket_rows, default="auto",
                     help='tile row cap: "auto" (degree-profile autotuner), '
                          '"none" (one tile per degree class) or an int')
+    ap.add_argument("--edge-chunk", type=int, default=None, metavar="EDGES",
+                    help="stream ingest in chunks of this many edges "
+                         "(bounded-transient spill-to-disk CSR build)")
     ap.add_argument("--divide-chunk", type=int, default=None, metavar="SLOTS",
                     help="chunk budget (adjacency slots) of the divide "
                          "passes; default = the built-in bounded budget")
@@ -111,10 +154,21 @@ def main(argv=None):
                     help="resume from --checkpoint-dir at the first "
                          "unfinished part (or mid-part, at the last "
                          "completed sweep snapshot)")
+    ap.add_argument("--overlap", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="pipeline the stages: prefetch the next part's "
+                         "divide on a worker thread and make checkpoint "
+                         "saves async while the current part sweeps "
+                         "(byte-identical coreness either way)")
     ap.add_argument("--ckpt-retain", type=int, default=2, metavar="N",
                     help="keep the N newest boundary/sweep checkpoint "
                          "steps (default 2: a corrupted latest step falls "
                          "back to its predecessor on --resume)")
+    ap.add_argument("--fault", action="append", default=[], metavar="SPEC",
+                    help="inject a failure: site:kind[:at[:count[:delay]]] "
+                         "(repeatable; chaos testing)")
+    ap.add_argument("--fault-log", default=None, metavar="FILE",
+                    help="write the fault event trail as JSON")
     ap.add_argument("--device", default="cuda",
                     help="where the sweep runs: cuda (default) or cpu")
     ap.add_argument("--check", action="store_true", help="verify vs BZ peeling")
@@ -129,8 +183,26 @@ def main(argv=None):
     if args.ckpt_retain < 1:
         ap.error("--ckpt-retain must be >= 1")
 
-    g = load_graph(args.graph, args.seed)
+    fault_plan = None
+    if args.fault:
+        from repro_torch.runtime import FaultPlan
+
+        try:
+            fault_plan = FaultPlan.parse(args.fault)
+        except ValueError as e:
+            ap.error(str(e))
+
+    t0 = time.perf_counter()
+    g, ingest = load_graph(args.graph, args.seed, edge_chunk=args.edge_chunk)
+    ingest_s = time.perf_counter() - t0
     print(f"graph: n={g.n_nodes:,} m={g.n_edges:,} max_deg={int(g.degrees.max())}")
+    if ingest is not None:
+        print(f"ingest (streamed, {ingest_s:.2f}s): chunk={ingest.chunk_edges:,} edges, "
+              f"{ingest.n_chunks} chunks, {ingest.n_bins} dedup bins, "
+              f"spill={ingest.spill_bytes/2**20:.1f} MiB; "
+              f"peak transient {ingest.peak_transient_bytes/2**20:.2f} MiB "
+              f"vs in-memory baseline {ingest.baseline_transient_bytes/2**20:.2f} MiB "
+              f"(output CSR {ingest.output_bytes/2**20:.2f} MiB)")
     if args.budget_gb is not None:
         thresholds = plan_thresholds(g.degrees, int(args.budget_gb * 2**30))
         print(f"planned thresholds for {args.budget_gb} GB/part: {thresholds}")
@@ -150,17 +222,29 @@ def main(argv=None):
         resume=args.resume,
         sweep_checkpoint_every=args.sweep_checkpoint_every,
         ckpt_retain=args.ckpt_retain,
+        overlap=args.overlap,
+        fault_plan=fault_plan,
     )
     print(f"\nDC-kCore done in {report.total_time_s:.2f}s "
           f"(preprocess {report.preprocess_time_s:.2f}s, engine={args.engine}"
           f"{'+int16' if args.int16 else ''}, reorder={args.reorder}, "
-          f"device={args.device})")
+          f"overlap={'on' if report.overlap else 'off'}, device={args.device})")
     print(f"device idle fraction: {report.idle_fraction:.3f} "
           f"(sweeping {report.total_decompose_time_s:.2f}s of "
           f"{report.total_time_s:.2f}s wall)")
+    if report.overlap:
+        print(f"prefetch: {report.prefetch_hits} hit(s), "
+              f"{report.prefetch_misses} miss(es) recomputed")
     if report.quarantined_steps:
         print(f"checkpoint integrity: {report.quarantined_steps} quarantined "
               f"checkpoint step(s)")
+    if args.fault_log:
+        events = list(report.fault_events)
+        if fault_plan is not None:
+            events += [e for e in fault_plan.events if e not in events]
+        with open(args.fault_log, "w") as f:
+            json.dump({"events": events}, f, indent=2, default=str)
+        print(f"fault-event log: {len(events)} event(s) -> {args.fault_log}")
     if report.resumed_parts:
         print(f"resumed: {report.resumed_parts} part(s) restored from "
               f"{args.checkpoint_dir}, not re-run")
@@ -183,7 +267,9 @@ def main(argv=None):
               f"work={p.gathered_rows:>10,}/{p.full_sweep_rows:<10,} "
               f"adj_density={p.bitmap_density:.3f} "
               f"divide_peak={p.divide_transient_bytes/2**20:.2f}MiB "
-              f"save_s={p.save_time_s:.3f} finalized={p.finalized:,}")
+              f"save_s={p.save_time_s:.3f} save_wall_s={p.save_wall_s:.3f} "
+              f"finalized={p.finalized:,}"
+              + (" [prefetched]" if p.prefetched else ""))
     print(f"kernel launches: fused_sweep={fused_sweep_op.launches - launches0[0]:,} "
           f"hindex={hindex_op.launches - launches0[1]:,}")
     if args.check:

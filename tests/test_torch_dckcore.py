@@ -18,6 +18,7 @@ from repro.graph.oracle import peel_coreness
 from repro_torch.core.dckcore import PartReport, dc_kcore
 from repro_torch.graph.structs import from_reference_arrays
 from repro_torch.launch import kcore as port_cli
+from repro_torch.runtime import FaultPlan
 
 # The graphs here are small and pytest-xdist runs several workers side by
 # side: one intra-op thread per worker keeps them from contending for cores.
@@ -86,12 +87,15 @@ def test_dc_kcore_tile_policy_and_part_hook():
 
 @pytest.mark.parametrize("option", [
     dict(part_parallel_plan=object()), dict(slice_capacity_bytes=1 << 20),
-    dict(overlap=True), dict(part_parallel=2),
-    dict(slice_timeout_s=1.0), dict(max_retries=1), dict(fault_plan=object()),
+    dict(overlap=True, part_parallel=2), dict(part_parallel=2),
+    dict(slice_timeout_s=1.0), dict(max_retries=1),
+    dict(fault_plan=FaultPlan(), max_retries=1),
 ])
 def test_later_slice_options_raise(option):
+    """Part-parallel conquer and its watchdog are the next slice; they
+    raise alone and beside the ported ``overlap`` and ``fault_plan``."""
     g = from_reference_arrays(rmat(6, 4, seed=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         dc_kcore(g, device="cpu", **option)
 
 
@@ -127,5 +131,11 @@ def test_cli_cpu_check_consistent(argv, capsys):
 
 
 def test_cli_rejects_unported_graph_sources():
-    with pytest.raises(NotImplementedError, match="graph/io.py"):
+    """``file:`` and ``npz:`` graphs are ported (tests/test_torch_ingest.py);
+    a missing file and an unknown spec still fail loudly."""
+    with pytest.raises(FileNotFoundError):
         port_cli.load_graph("file:/nonexistent", 0)
+    with pytest.raises(FileNotFoundError):
+        port_cli.load_graph("npz:/nonexistent.npz", 0)
+    with pytest.raises(ValueError, match="unknown graph spec"):
+        port_cli.load_graph("parquet:/x", 0)

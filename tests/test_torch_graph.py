@@ -86,7 +86,11 @@ def test_port_imports_neither_jax_nor_repro():
         "             or k == 'jaxlib' or k == 'repro' or k.startswith('repro.')\n"
         "             or k == 'ml_dtypes' or k.startswith('ml_dtypes.'))\n"
         "for m in ('repro_torch.ckpt.checkpoint', 'repro_torch.core.distributed',\n"
-        "          'repro_torch.kernels.counts.ops', 'repro_torch.launch.mesh'):\n"
+        "          'repro_torch.kernels.counts.ops', 'repro_torch.launch.mesh',\n"
+        "          'repro_torch.graph.io', 'repro_torch.graph.delta',\n"
+        "          'repro_torch.graph.editlog', 'repro_torch.runtime.fault',\n"
+        "          'repro_torch.core.incremental', 'repro_torch.core.snapshot_pub',\n"
+        "          'repro_torch.launch.kcore_serve'):\n"
         "    assert m in sys.modules, m\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
         "assert not bad, bad\n"
@@ -95,7 +99,7 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 22  # every module was imported
+    assert int(out.stdout.strip()) >= 30  # every module was imported
 
 
 # --------------------------------------------------------------------- #
