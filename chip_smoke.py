@@ -57,8 +57,14 @@ and fails (non-zero exit, no result line) without them. Phases:
    ``dc_kcore`` with the thresholds and the counts kernel must
    equal the oracle and the one-rank run's trajectories; a
    ``frontier=False`` run's collective bytes must equal the planned
-   schedule. Any rank's failure fails the smoke. gloo moves the
-   collectives through host memory: these are not NCCL or NVLink times.
+   schedule. Then the same ranks run part-parallel rank slices: the plan
+   split into two slices of two ranks, ``part_parallel=2`` (Exact-Divide),
+   the counts kernel, with the E(v) boundary exchange over all four ranks;
+   every rank must equal the one-rank run and the oracle, both slices must
+   conquer parts, the exchange must move bytes, and the counts kernel must
+   launch on every rank (its counter zeroed just before the run). Any
+   rank's failure fails the smoke. gloo moves the collectives through host
+   memory: these are not NCCL or NVLink times.
 7. Crash and resume on ``rmat(16, 16)``, one rank, counts kernel: snapshots
    every sweep, a crash raised at the second snapshot save, a resume that
    must restart mid-part and reach the uninterrupted run's coreness.
@@ -93,7 +99,23 @@ and fails (non-zero exit, no result line) without them. Phases:
     their plain versions on every tile at that state. Per batch: mode,
     dirty fraction and the split into splice, region BFS, bucketize and
     re-sweep; the CLI's updates/s, query p50/p99 and staleness.
-11. The kernel table as one JSON line, then the result line.
+11. Part-parallel conquer. Stream slices on ``rmat(20, 16)`` with the
+    thresholds (64, 16): ``dc_kcore(engine="fused", part_parallel=S)``,
+    Rough and Exact, S = 2 and 3, and ``engine="kernel"`` at S = 2; each
+    coreness byte-identical to phase 3's sequential run and equal to the
+    oracle, no speculation miss under Exact, each slice's parts on that
+    slice's own CUDA stream (recorded inside the worker) and each slice's
+    launches counted (the counters zeroed just before each run and read
+    just after); wall against phase 9's sequential runs, the wave wall,
+    per-slice busy seconds and utilization, the speculation counters. Then
+    on ``rmat(16, 16)``: one injected ``slice_conquer`` crash (retried once),
+    one injected hang (the watchdog blacklists its slice), both
+    byte-identical to the sequential run, and a crash at the second sweep
+    snapshot whose resume warm-restarts mid-part. Rank slices ran in phase
+    6's fleet: the (2, 2) plan split into two slices of two ranks,
+    ``part_parallel=2``, the counts kernel. Last, the CLI with
+    ``--part-parallel 2 --check`` on phase 8's npz of ``rmat(20, 16)``.
+12. The kernel table as one JSON line, then the result line.
 
 Nothing here imports JAX or the JAX package (``src/repro``).
 """
@@ -475,6 +497,7 @@ def main() -> int:
         ("fused compaction", (), engine("fused", fused_compaction_min_tiles=1)),
     ]
     int16_parts = []
+    seq = {}  # phase 3's sequential fused int32 run at THRESHOLDS: (wall, coreness)
     fused_sweep_op.launches = 0
     hindex_op.launches = 0
     for name, thresholds, (fn, dtypes) in runs:
@@ -498,6 +521,8 @@ def main() -> int:
             f"{'CONSISTENT' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"main path {name} {thresholds}: coreness != oracle")
+        if name == "fused int32" and thresholds == THRESHOLDS:
+            seq["wall"], seq["core"] = wall, core
         if (d_hindex if name == "kernel" else d_fused) <= 0:
             raise AssertionError(f"main path {name}: its kernel was never launched")
         if len(dtypes) != len(rep.parts):
@@ -732,6 +757,24 @@ def main() -> int:
         blocks = sorted(tuple(res["blocks"]) for res in fleet)
         if blocks != [(0, 0), (0, 1), (1, 0), (1, 1)]:
             raise AssertionError(f"four-rank phase: row/slot blocks {blocks}")
+        for r, res in enumerate(fleet):
+            pp = res["part_parallel"]
+            core_r = np.load(work / f"core_pp{r}.npy")
+            if core_r.tobytes() != core1.tobytes() or not (core_r == small_oracle).all():
+                raise AssertionError(f"rank slices: rank {r} coreness != the one-rank run "
+                                     f"or the oracle")
+            if (sorted(set(pp["slice_index"])) != [0, 1] or min(pp["slice_busy_s"]) <= 0
+                    or pp["boundary_exchange_bytes"] <= 0 or pp["launches"] <= 0
+                    or pp["own_slice"] != r // 2):
+                raise AssertionError(f"rank slices: rank {r} {pp}")
+        pp = fleet[0]["part_parallel"]
+        log(f"part-parallel rank slices, {FLEET_SHAPE} plan split into two slices of two "
+            f"ranks, Exact-Divide, counts kernel: every rank CONSISTENT and byte-identical to "
+            f"the one-rank run; rank 0: dc_kcore wall {pp['wall']:.2f}s, wave wall "
+            f"{pp['conquer_wall_s']:.2f}s, slice busy {[round(b, 3) for b in pp['slice_busy_s']]}"
+            f" s, utilization {[round(u, 3) for u in pp['slice_utilization']]}, parts' slices "
+            f"{pp['slice_index']}, boundary-exchange bytes {pp['boundary_exchange_bytes']:,}, "
+            f"counts launches per rank {[res['part_parallel']['launches'] for res in fleet]}")
         log(f"four ranks, {FLEET_SHAPE} {FLEET_AXES} plan over gloo on one card: every rank "
             f"CONSISTENT, trajectories equal to the one-rank run's, frontier=False collective "
             f"bytes equal to the planned schedule; rank 0: dc_kcore wall "
@@ -770,10 +813,11 @@ def main() -> int:
         log(f"crash and resume: crashed at snapshot saves {saves}, resumed parts "
             f"(name, sweep) {resumed}: coreness equal to the uninterrupted run")
 
-        # ---------------- phases 8-10: ingest, overlap, serve ------------- #
+        # ---------------- phases 8-11: ingest, overlap, serve, waves ------- #
         npz_path = phase_ingest(g, small, work)
-        phase_overlap(g, oracle, work)
+        seq_walls = phase_overlap(g, oracle, work)
         phase_serve(g, npz_path, work)
+        phase_part_parallel(g, oracle, seq, seq_walls, small, small_oracle, npz_path, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -782,7 +826,7 @@ def main() -> int:
     if bad:
         raise AssertionError(f"JAX or the JAX package was imported: {bad}")
 
-    # ---------------- phase 11: result lines ---------------- #
+    # ---------------- phase 12: result lines ---------------- #
     kernels = [
         {"name": "fused_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused.cu",
@@ -875,9 +919,10 @@ def phase_ingest(g, small, work: Path) -> Path:
     return npz_path
 
 
-def phase_overlap(g, oracle, work: Path) -> None:
+def phase_overlap(g, oracle, work: Path) -> dict:
     """Phase 9: the overlapped pipeline against the sequential one on the
-    card, and an overlapped run whose async checkpoints restore."""
+    card, and an overlapped run whose async checkpoints restore. Returns
+    the sequential runs' walls by strategy."""
     import threading
 
     import torch
@@ -885,6 +930,7 @@ def phase_overlap(g, oracle, work: Path) -> None:
     from repro_torch.kernels.fused import fused_sweep_op
 
     cores = {}
+    walls = {}
     fused_sweep_op.launches = 0
     for strategy in ("rough", "exact"):
         for overlap in (False, True):
@@ -896,6 +942,7 @@ def phase_overlap(g, oracle, work: Path) -> None:
             wall = time.perf_counter() - t0
             ok = bool((core == oracle).all())
             cores[strategy, overlap] = core
+            walls[strategy, overlap] = wall
             log(f"overlap {'on ' if overlap else 'off'} {strategy:>5} thresholds="
                 f"{list(THRESHOLDS)}: wall {wall:.2f}s (sweeping "
                 f"{rep.total_decompose_time_s:.2f}s), idle fraction {rep.idle_fraction:.3f}, "
@@ -929,6 +976,165 @@ def phase_overlap(g, oracle, work: Path) -> None:
         f"fraction {rep.idle_fraction:.3f}; the latest checkpoint (step of "
         f"{state.parts_done} parts, complete) restores to the same coreness; fused launches "
         f"on the overlap path {launches:,}")
+    return {strategy: walls[strategy, False] for strategy in ("rough", "exact")}
+
+
+def phase_part_parallel(g, oracle, seq, seq_walls, small, small_oracle, npz_path: Path,
+                        work: Path) -> None:
+    """Phase 11: part-parallel conquer on the card. Stream slices through
+    ``dc_kcore``'s own engines (the fused and h-index kernels), the watchdog
+    (an injected crash and hang) and a mid-part crash and resume, then the
+    CLI. The engine's ``decompose`` is wrapped to record, inside each slice
+    worker, the thread and its current CUDA stream."""
+    import threading
+
+    import numpy as np
+    import torch
+    import repro_torch.core.dckcore as dckcore
+    from repro_torch.kernels.fused import fused_sweep_op
+    from repro_torch.kernels.hindex import hindex_op
+    from repro_torch.runtime import FaultPlan, FaultSpec
+
+    t_phase = time.perf_counter()
+    real_decompose = dckcore.decompose
+    seen = []
+
+    def recording(bg, **kw):
+        seen.append((threading.current_thread().name, torch.cuda.current_stream().cuda_stream))
+        return real_decompose(bg, **kw)
+
+    default_stream = torch.cuda.default_stream().cuda_stream
+
+    def checked_streams(name, slices):
+        """Every part ran on a slice worker, on that slice's one stream,
+        and no two slices shared a stream or used the default one."""
+        by_thread = {}
+        for thread, stream in seen:
+            if not thread.startswith("dckcore-conquer-"):
+                raise AssertionError(f"{name}: a part ran on thread {thread}")
+            by_thread.setdefault(thread, set()).add(stream)
+        streams = [next(iter(v)) for v in by_thread.values()]
+        if (any(len(v) != 1 for v in by_thread.values()) or len(set(streams)) != len(streams)
+                or default_stream in streams or len(by_thread) > slices):
+            raise AssertionError(f"{name}: streams by slice thread {by_thread}")
+        return {t: hex(next(iter(v))) for t, v in sorted(by_thread.items())}
+
+    dckcore.decompose = recording
+    try:
+        runs = [("fused", "rough", 2), ("fused", "rough", 3), ("fused", "exact", 2),
+                ("fused", "exact", 3), ("kernel", "exact", 2)]
+        for engine, strategy, slices in runs:
+            counter = fused_sweep_op if engine == "fused" else hindex_op
+            seen.clear()
+            counter.launches = 0
+            counter.launches_by_thread.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            core, rep = dckcore.dc_kcore(g, THRESHOLDS, strategy=strategy, engine=engine,
+                                         device="cuda", part_parallel=slices)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            per_slice = dict(sorted(counter.launches_by_thread.items()))
+            streams = checked_streams(f"stream slices {engine} {strategy} S={slices}", slices)
+            if core.tobytes() != seq["core"].tobytes() or not (core == oracle).all():
+                raise AssertionError(f"stream slices {engine} {strategy} S={slices}: coreness "
+                                     f"differs from the sequential run or the oracle")
+            if strategy == "exact" and (rep.prefetch_misses or rep.speculation_discards):
+                raise AssertionError(f"stream slices {engine} exact S={slices}: "
+                                     f"{rep.prefetch_misses} misses, "
+                                     f"{rep.speculation_discards} discards")
+            if (counter.launches <= 0 or sum(per_slice.values()) != counter.launches
+                    or set(per_slice) != set(streams)):
+                raise AssertionError(f"stream slices {engine} {strategy} S={slices}: launches "
+                                     f"{counter.launches}, by thread {per_slice}")
+            log(f"stream slices {engine:>6} {strategy:>5} S={slices}: wall {wall:.2f}s against "
+                f"the sequential fused run's {seq_walls[strategy]:.2f}s (phase 9), wave wall "
+                f"{rep.conquer_wall_s:.2f}s, sweeping {rep.total_decompose_time_s:.2f}s, slice "
+                f"busy {[round(b, 3) for b in rep.slice_busy_s]} s, utilization "
+                f"{[round(u, 3) for u in rep.slice_utilization]}, speculation hits "
+                f"{rep.prefetch_hits} misses {rep.prefetch_misses} discards "
+                f"{rep.speculation_discards}, parts (name, slice, wave) "
+                f"{[(p.name, p.slice_index, p.wave) for p in rep.parts]}, {engine} launches "
+                f"by slice {per_slice}, streams {streams}: CONSISTENT, byte-identical")
+
+        # The watchdog and a mid-part crash, on rmat(16, 16).
+        small_seq, _ = dckcore.dc_kcore(small, THRESHOLDS, engine="fused", device="cuda")
+        if not (small_seq == small_oracle).all():
+            raise AssertionError("watchdog: the sequential small run != the oracle")
+        crash = FaultPlan([FaultSpec("slice_conquer", "crash", at=0)])
+        seen.clear()
+        core, rep = dckcore.dc_kcore(small, THRESHOLDS, engine="fused", device="cuda",
+                                     part_parallel=2, max_retries=2, fault_plan=crash)
+        checked_streams("watchdog crash", 2)
+        if core.tobytes() != small_seq.tobytes() or rep.retries != 1 or len(crash.events) != 1:
+            raise AssertionError(f"watchdog crash: retries {rep.retries}, events "
+                                 f"{crash.events}, coreness equal "
+                                 f"{core.tobytes() == small_seq.tobytes()}")
+        hang = FaultPlan([FaultSpec("slice_conquer", "hang", at=0, delay_s=60.0)])
+        t0 = time.perf_counter()
+        core, rep_h = dckcore.dc_kcore(small, THRESHOLDS, engine="fused", device="cuda",
+                                       part_parallel=2, slice_timeout_s=2.0, max_retries=0,
+                                       fault_plan=hang)
+        hang_s = time.perf_counter() - t0
+        if (core.tobytes() != small_seq.tobytes() or len(rep_h.blacklisted_slices) != 1
+                or rep_h.degraded_waves < 1):
+            raise AssertionError(f"watchdog hang: blacklisted {rep_h.blacklisted_slices}, "
+                                 f"degraded waves {rep_h.degraded_waves}")
+        log(f"watchdog on stream slices, rmat({SMALL_SCALE},{EDGE_FACTOR}): one slice_conquer "
+            f"crash -> {rep.retries} retry, fault events "
+            f"{[e['event'] for e in rep.fault_events]}; one hang with a 2 s timeout -> "
+            f"blacklisted slices {rep_h.blacklisted_slices}, {rep_h.degraded_waves} degraded "
+            f"wave(s), wall {hang_s:.2f}s; both byte-identical to the sequential run")
+
+        class Crash(Exception):
+            pass
+
+        saves = []
+
+        def killer(cursor, sweep, _save_s):
+            saves.append((cursor, sweep, threading.current_thread().name))
+            if len(saves) == 2:
+                raise Crash
+
+        ck = str(work / "ck_waves")
+        try:
+            dckcore.dc_kcore(small, THRESHOLDS, engine="fused", device="cuda", part_parallel=2,
+                             checkpoint_dir=ck, sweep_checkpoint_every=1,
+                             on_sweep_saved=killer)
+            raise AssertionError("stream slices crash: the injected crash never fired")
+        except Crash:
+            pass
+        core, rep = dckcore.dc_kcore(small, THRESHOLDS, engine="fused", device="cuda",
+                                     part_parallel=2, checkpoint_dir=ck, resume=True,
+                                     sweep_checkpoint_every=1)
+        resumed = [(p.name, p.resumed_at_sweep) for p in rep.parts]
+        if core.tobytes() != small_seq.tobytes() or not any(s > 0 for _n, s in resumed):
+            raise AssertionError(f"stream slices crash and resume: resumed {resumed}")
+        log(f"stream slices crash and resume: crashed at snapshot saves "
+            f"(cursor, sweep, thread) {saves}, resumed parts (name, sweep) {resumed}: "
+            f"coreness equal to the uninterrupted run")
+    finally:
+        dckcore.decompose = real_decompose
+    alive = [t.name for t in threading.enumerate() if t.name.startswith("dckcore-conquer")]
+    if alive:
+        raise AssertionError(f"part-parallel: conquer threads left {alive}")
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.kcore", "--graph", f"npz:{npz_path}",
+         "--thresholds", ",".join(map(str, THRESHOLDS)), "--engine", "fused",
+         "--part-parallel", "2", "--check"],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=FLEET_TIMEOUT_S)
+    lines = [l for l in cli.stdout.splitlines() if l.startswith(("part-parallel:", "DC-kCore",
+                                                                  "kernel launches", "oracle"))]
+    if cli.returncode != 0 or "CONSISTENT" not in cli.stdout or len(lines) != 4:
+        log(cli.stdout[-4000:] + cli.stderr[-4000:])
+        raise AssertionError(f"part-parallel CLI exited {cli.returncode}")
+    log(f"part-parallel CLI (--part-parallel 2 --engine fused --check on the npz, "
+        f"{time.perf_counter() - t0:.1f}s): " + " | ".join(lines))
+    log(f"part-parallel phase (stream slices, watchdog, crash and resume, CLI): "
+        f"{time.perf_counter() - t_phase:.1f}s")
 
 
 def _serve_batches(g0, seed):
@@ -1144,7 +1350,8 @@ def phase_serve(g, npz_path: Path, work: Path) -> None:
 
 def fleet_rank(rank: int, work: str) -> int:
     """One rank of phase 6: join the gloo group, run the (2, 2) plan on the
-    graph the parent wrote to ``work``, write this rank's results there."""
+    graph the parent wrote to ``work``, then the plan's two rank slices
+    part-parallel, and write this rank's results there."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1158,6 +1365,7 @@ def fleet_rank(rank: int, work: str) -> int:
                                               make_distributed_decompose,
                                               planned_collective_schedule)
     from repro_torch.core.hindex import hindex_of_sequence
+    from repro_torch.core.partsched import slice_mesh_plans
     from repro_torch.graph.build import bucketize
     from repro_torch.graph.structs import Graph
     from repro_torch.kernels.counts import partial_counts_op
@@ -1188,12 +1396,32 @@ def fleet_rank(rank: int, work: str) -> int:
         [b.n_rows for b in bg.buckets], plan, cand, n_iters=full.iterations,
         full_sweeps=full.iterations, frontier=False)
     np.save(Path(work) / f"core{rank}.npy", core)
+
+    # Part-parallel rank slices: the plan split into two slices of two ranks
+    # along "data"; each rank conquers its slice's parts and receives the
+    # other slice's results.
+    partial_counts_op.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    core_pp, rep_pp = dc_kcore(g, THRESHOLDS, strategy="exact", part_parallel=2,
+                               part_parallel_plan=plan, device="cuda")
+    torch.cuda.synchronize()
+    pp = {
+        "wall": time.perf_counter() - t0, "launches": partial_counts_op.launches,
+        "conquer_wall_s": rep_pp.conquer_wall_s, "slice_busy_s": rep_pp.slice_busy_s,
+        "slice_utilization": rep_pp.slice_utilization,
+        "slice_index": [p.slice_index for p in rep_pp.parts],
+        "boundary_exchange_bytes": rep_pp.boundary_exchange_bytes,
+        "own_slice": next(i for i, p in enumerate(slice_mesh_plans(plan, 2)) if p.rank >= 0),
+    }
+    np.save(Path(work) / f"core_pp{rank}.npy", core_pp)
     (Path(work) / f"rank{rank}.json").write_text(json.dumps({
         "trajectories": [[r.comm_per_iter, r.active_rows_per_iter] for r in results],
         "collective_bytes": [b for r in results for b in r.collective_bytes_per_iter],
         "full_sweep_bytes": full.collective_bytes_per_iter, "planned_bytes": planned,
         "blocks": [plan.node_index, plan.slot_index], "launches": launches,
         "wall": wall, "sweeping": rep.total_decompose_time_s, "sweeps": rep.total_iterations,
+        "part_parallel": pp,
     }))
     dist.destroy_process_group()
     return 0

@@ -35,12 +35,37 @@ handed; the main thread rebinds its state to fresh arrays instead of
 mutating them. ``close()`` joins the worker and drains both managers on
 every exit path, a crash included.
 
-**Fault injection.** ``fault_plan`` (a
+**Part-parallel waves.** ``part_parallel=S`` conquers up to ``S``
+consecutive parts at once per wave (:mod:`repro_torch.core.partsched`): the
+wave planner chains speculative shrinks (part ``i+1`` planned on part
+``i``'s predicted shrink, the overlap prefetch at depth ``S``), the LPT
+scheduler places each part on a slice by its modeled cost, and the merge
+validates the predictions strictly in plan order, discarding the wave's
+tail on the first miss. Slices are worker threads named
+``dckcore-conquer-<i>``; on a CUDA device each runs its parts on its own
+CUDA stream (*stream slices*), created once per run. With
+``part_parallel_plan`` (a :class:`~repro_torch.core.distributed.MeshPlan`
+over a process group) the slices are blocks of ranks instead (*rank
+slices*): every rank plans the same waves, conquers only its own slice's
+parts through that slice's distributed engine, and receives every other
+part's result from its slice's first rank over the world group, in cursor
+order; the merge, the E(v) folds (over the whole plan, on the device) and
+the checkpoints then run identically on every rank. Coreness, reports,
+checkpoints and sweep snapshots are byte-identical to the sequential path
+either way; only the lead part of a wave (the one the last boundary
+checkpoint points at) consults or writes sweep snapshots.
+
+**Fault injection and tolerance.** ``fault_plan`` (a
 :class:`~repro_torch.runtime.FaultPlan`) is visited at the pipeline's named
 sites: ``prefetch`` (the worker's task), ``boundary_fold`` (every E(v)
-fold, sequential and speculative) and ``checkpoint_save`` (every boundary
-save). A fault there is fail-fast, like a real crash: the run drains and
-re-raises, and recovery is the resume path.
+fold, sequential and speculative), ``checkpoint_save`` (every boundary
+save) and ``slice_conquer`` (before each attempt of a part on a slice). A
+fault at the first three is fail-fast, like a real crash: the run drains
+and re-raises, and recovery is the resume path. ``slice_timeout_s`` /
+``max_retries`` arm the wave watchdog on stream and thread slices: a
+failed part retries on its slice with exponential backoff, and a slice
+that hangs or runs out of retries is blacklisted for the rest of the run,
+its parts re-planned over the survivors.
 
 **Per-part checkpoints.** With ``checkpoint_dir`` set, the host state
 between parts (:class:`PipelineState`: coreness, the finalized mask, ``ext``
@@ -61,15 +86,15 @@ detected and resume falls back to the part boundary.
 The on-disk format is the JAX package's, so a checkpoint directory written
 by ``repro.core.dckcore`` resumes here and the other way round.
 
-This is the port of the JAX package's ``repro.core.dckcore`` on its
-sequential and overlapped paths; the per-part reports are field-for-field
-the same. Part-parallel waves and their watchdog are a later slice of the
-port (``ROADMAP.md``, queue 1, item 7); their options raise
-:class:`NotImplementedError` here.
+This is the port of the JAX package's ``repro.core.dckcore``; the per-part
+reports are field-for-field the same. The watchdog on rank slices is not
+ported (``ROADMAP.md``, queue 1, "the watchdog on rank slices") and raises
+:class:`NotImplementedError`.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import logging
 import os
@@ -78,6 +103,7 @@ import zlib
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.decompose import DecomposeResult, decompose
 from repro_torch.core.divide import timed_candidates
@@ -172,8 +198,23 @@ class DCKCoreReport:
     overlap: bool = False     # divide/checkpoint overlapped with conquer?
     prefetch_hits: int = 0    # speculative shrinks adopted
     prefetch_misses: int = 0  # speculative shrinks discarded + recomputed
-    # Checkpoint steps quarantined as corrupt during restore, and their
-    # records ({"event": "quarantine", ...}).
+    # Part-parallel conquer (0 = sequential): slice count, wall seconds the
+    # wave executor ran, per-slice busy seconds (sweep wall summed over the
+    # slice's parts), speculative conquers discarded after a mispredicted
+    # wave, and the collective bytes of the rank slices' E(v) boundary
+    # folds (0 when the fold ran on the host).
+    part_parallel: int = 0
+    conquer_wall_s: float = 0.0
+    slice_busy_s: List[float] = dataclasses.field(default_factory=list)
+    speculation_discards: int = 0
+    boundary_exchange_bytes: int = 0
+    # Fault tolerance: retried conquer attempts, slices blacklisted (a hang
+    # or retries run out), waves that finished on fewer slices than
+    # planned, checkpoint steps quarantined as corrupt during restore, and
+    # the event log (retry / blacklist / replan / quarantine, in order).
+    retries: int = 0
+    blacklisted_slices: List[int] = dataclasses.field(default_factory=list)
+    degraded_waves: int = 0
     quarantined_steps: int = 0
     fault_events: List[dict] = dataclasses.field(default_factory=list)
 
@@ -229,6 +270,15 @@ class DCKCoreReport:
         if self.total_time_s <= 0:
             return 0.0
         return max(0.0, 1.0 - self.total_decompose_time_s / self.total_time_s)
+
+    @property
+    def slice_utilization(self) -> List[float]:
+        """Per-slice busy fraction of the wave executor's wall clock -- how
+        evenly the LPT schedule filled the slices (empty when
+        sequential)."""
+        if self.conquer_wall_s <= 0:
+            return [0.0 for _ in self.slice_busy_s]
+        return [min(1.0, b / self.conquer_wall_s) for b in self.slice_busy_s]
 
 
 @dataclasses.dataclass
@@ -536,8 +586,9 @@ class _Prefetch:
 
 class _PartPipeline:
     """The scheduler behind :func:`dc_kcore`: divide, conquer, merge, shrink
-    and checkpoint, one part at a time, with the next part's divide
-    prefetched on a worker thread when ``overlap`` is on.
+    and checkpoint, one part at a time (with the next part's divide
+    prefetched on a worker thread when ``overlap`` is on), or a wave of
+    parts at a time across slices when ``part_parallel`` is set.
 
     The main thread owns ``state`` and the conquer stage; the (optional,
     single) prefetch worker only reads the graph and ``ext`` passed to it
@@ -567,6 +618,14 @@ class _PartPipeline:
         sweeps_mgr=None,
         overlap: bool = False,
         fault_plan=None,
+        part_parallel: Optional[int] = None,
+        slice_decomposes: Optional[List[DecomposeFn]] = None,
+        slice_specs: Optional[list] = None,
+        slice_plans: Optional[list] = None,
+        slice_streams: Optional[list] = None,
+        fold_plan=None,
+        device="cuda",
+        watchdog=None,
     ):
         self.state = state
         self.remaining_graph = remaining_graph
@@ -586,6 +645,37 @@ class _PartPipeline:
         self.sweeps_mgr = sweeps_mgr
         self.overlap = overlap
         self.fault_plan = fault_plan
+
+        # Part-parallel conquer: slice count, one DecomposeFn per slice
+        # (None = every slice thread shares ``decompose_fn``), the pure
+        # SliceSpecs the scheduler prices against, the rank slices' plans
+        # (None = thread or stream slices), one CUDA stream per slice (None
+        # off the card), and the whole plan that routes the E(v) boundary
+        # fold through the ranks on ``device`` (None = host fold).
+        self.part_parallel = part_parallel
+        self.slice_decomposes = slice_decomposes
+        self.slice_specs = slice_specs
+        self.slice_plans = slice_plans
+        self.slice_streams = slice_streams
+        self.fold_plan = fold_plan
+        self.device = device
+        self.slice_busy_s = [0.0] * (part_parallel or 0)
+        self.conquer_wall_s = 0.0
+        self.boundary_exchange_bytes = 0
+        self.speculation_discards = 0
+        self._wave_index = 0
+
+        # Fault tolerance: the wave watchdog (None = fail-fast), the slices
+        # blacklisted so far (they stay dead for the rest of the run, so
+        # waves narrow S -> S-1 -> ... -> 1), and the retry / blacklist /
+        # replan accounting.
+        self.watchdog = watchdog
+        self.blacklisted: set = set()
+        self.retries = 0
+        self.replans = 0
+        self.degraded_waves = 0
+        self.fault_events: List[dict] = []
+
         self.parts: List[PartReport] = state.reports
         self.preprocess_time_s = 0.0
         self.prefetch_hits = 0
@@ -599,8 +689,10 @@ class _PartPipeline:
 
     def _visit_fault(self, site: str, **ctx) -> None:
         """Chaos hook: consult the fault plan at a named site (no-op
-        without one). These sites are fail-fast: a fault kills the run
-        like a real crash, and recovery is the resume path."""
+        without one). These main-thread sites are fail-fast: a fault kills
+        the run like a real crash, and recovery is the resume path. Only
+        ``slice_conquer`` faults (visited inside the wave executor) are
+        retried or re-planned in the run."""
         if self.fault_plan is not None:
             self.fault_plan.visit(site, **ctx)
 
@@ -693,10 +785,21 @@ class _PartPipeline:
 
     def _fold_external(self, graph: Graph, keep_local: np.ndarray,
                        upper_local: np.ndarray, stats: DivideStats) -> np.ndarray:
-        """E(v) boundary fold on the host. Only ever called from the thread
-        that owns ``stats``. (The JAX package's device fold over a global
-        mesh plan serves part-parallel conquer, a later slice.)"""
+        """E(v) boundary fold: a host pass, or an all-reduce over the ranks
+        when the pipeline holds a whole plan (rank slices), which also
+        counts its bytes. Bit-identical either way. Only ever called from
+        the thread that owns ``stats`` (the prefetch worker never runs with
+        a fold plan: overlap and part_parallel exclude each other)."""
         self._visit_fault("boundary_fold", n_nodes=int(graph.n_nodes))
+        if self.fold_plan is not None:
+            from repro_torch.core.distributed import device_external_info
+
+            delta, moved = device_external_info(
+                graph, keep_local, upper_local, self.fold_plan,
+                chunk_slots=self.divide_chunk, stats=stats, device=self.device,
+            )
+            self.boundary_exchange_bytes += moved
+            return delta
         return external_info(
             graph, keep_local, upper_local,
             chunk_slots=self.divide_chunk, stats=stats,
@@ -705,7 +808,9 @@ class _PartPipeline:
     def _speculative_shrink(self, graph: Graph, ext: np.ndarray,
                             cand_mask: np.ndarray, cursor: int) -> _Prefetch:
         """Shrink ``graph`` as if EVERY candidate of part ``cursor``
-        finalizes."""
+        finalizes: the speculation of the overlap prefetch (depth 1, on the
+        worker) and of the wave planner (depth ``part_parallel``, on the
+        main thread)."""
         t0 = time.perf_counter()
         stats = self._fresh_stats()
         keep_local = ~cand_mask
@@ -742,16 +847,27 @@ class _PartPipeline:
         return pf if pf.base_cursor == cursor else None
 
     # ---------------- conquer stage ---------------- #
-    def _conquer(self, plan: PartPlan):
+    def _conquer(self, plan: PartPlan, fn: Optional[DecomposeFn] = None,
+                 lead: bool = True, account: bool = True, heartbeat=None):
         """Conquer one part; returns ``(result, bitmap density, start
         sweep)``. A pending sweep snapshot that belongs to this part warm
         restarts it; with ``sweep_checkpoint_every`` the engine's
-        ``on_sweep`` hook saves a snapshot every that many sweeps."""
+        ``on_sweep`` hook saves a snapshot every that many sweeps.
+
+        ``fn`` overrides the engine (a slice's decompose). ``lead=False``
+        (a wave's later parts) skips the pending snapshot and the snapshot
+        hook: only the part the boundary checkpoint points at writes
+        snapshots, so a crashed wave leaves the disk a sequential run
+        crashed in that part would. ``account=False`` leaves the
+        preprocess-time accounting to the main thread. ``heartbeat`` (the
+        watchdog's liveness callable) is composed into ``on_sweep``; alone
+        it reads nothing of the estimates, so no sweep copies them to the
+        host for it."""
         state = self.state
         t0 = time.perf_counter()
         init = None
         start_sweep = 0
-        if self.pending_snap is not None:
+        if lead and self.pending_snap is not None:
             snap = self.pending_snap
             if snap.matches(state, plan.cursor, plan.part_g.n_nodes,
                             plan.threshold):
@@ -766,14 +882,16 @@ class _PartPipeline:
             # resumed run executes.
             self.pending_snap = None
         hook = None
-        if self.sweep_checkpoint_every is not None:
+        if lead and self.sweep_checkpoint_every is not None:
             every = max(1, int(self.sweep_checkpoint_every))
             last = {"c": None if init is None else np.asarray(init)}
 
             def hook(it, coreness):
                 if it % every:
                     return
-                # The engine's view is a tensor on its device.
+                # The engine's view is a tensor on its device, made on this
+                # thread's current stream (a slice's own on the card), which
+                # this copy runs on too.
                 c = coreness.cpu().numpy().astype(np.int32, copy=False)
                 if last["c"] is not None and np.array_equal(last["c"], c):
                     return  # fixed point (or no progress): nothing to save
@@ -786,13 +904,23 @@ class _PartPipeline:
                 if self.on_sweep_saved is not None:
                     self.on_sweep_saved(plan.cursor, start_sweep + it, save_s)
 
-        self.preprocess_time_s += (
-            (time.perf_counter() - t0) + plan.bucketize_time_s + plan.extract_time_s
-        )
+        if heartbeat is not None:
+            inner = hook
+
+            def hook(it, coreness, _inner=inner):
+                heartbeat()
+                if _inner is not None:
+                    _inner(it, coreness)
+
+        if account:
+            self.preprocess_time_s += (
+                (time.perf_counter() - t0) + plan.bucketize_time_s + plan.extract_time_s
+            )
+        fn = fn if fn is not None else self.decompose_fn
         if init is not None or hook is not None:
-            res = self.decompose_fn(plan.bg, init_coreness=init, on_sweep=hook)
+            res = fn(plan.bg, init_coreness=init, on_sweep=hook)
         else:
-            res = self.decompose_fn(plan.bg)
+            res = fn(plan.bg)
         return res, bitmap_density(plan.bg), start_sweep
 
     # ---------------- merge + shrink ---------------- #
@@ -886,12 +1014,14 @@ class _PartPipeline:
         report.divide_transient_bytes = plan.dstats.peak_transient_bytes
 
     def _merge_rest(self, plan: PartPlan, res, density: float,
-                    start_sweep: int) -> None:
+                    start_sweep: int, annotate=None) -> None:
         state = self.state
         state.coreness[state.remaining_ids] = res.coreness
         state.finalized[state.remaining_ids] = True
         report = self._report_for(plan, res, density, start_sweep,
                                   plan.part_g.n_nodes)
+        if annotate is not None:
+            annotate(report)  # wave / slice stamps, before the report is saved
         self.parts.append(report)
         state.remaining_ids = np.zeros(0, dtype=np.int64)
         state.ext_remaining = np.zeros(0, dtype=np.int32)
@@ -922,8 +1052,245 @@ class _PartPipeline:
         if self.on_part_done is not None and report is not None:
             self.on_part_done(len(self.parts) - 1, report)
 
+    # ---------------- part-parallel waves ---------------- #
+    def _wave_width(self) -> int:
+        """Parts planned per wave: the slice count minus the blacklisted
+        slices (a degraded run plans narrower waves; at width 1 it is the
+        sequential loop)."""
+        return max(1, (self.part_parallel or 1) - len(self.blacklisted))
+
+    def _plan_wave(self, first_plan: PartPlan):
+        """Plan up to ``part_parallel`` consecutive parts (minus the
+        blacklisted slices) by chaining speculative shrinks: part ``i+1`` is
+        planned on the PREDICTED shrink of part ``i`` (every candidate
+        finalizes). Returns ``(wave, shrinks)`` with ``shrinks[i]`` the
+        speculative shrink that applies after ``wave[i]`` (``None`` for
+        empty parts and for the un-speculated last entry). Main thread,
+        host work only."""
+        wave = [first_plan]
+        shrinks: List[Optional[_Prefetch]] = [None]
+        graph, ext = self.remaining_graph, self.state.ext_remaining
+        while len(wave) < self._wave_width() and not wave[-1].is_rest:
+            cur = wave[-1]
+            if not cur.is_empty:
+                pf = self._speculative_shrink(graph, ext, cur.cand_mask,
+                                              cur.cursor)
+                shrinks[-1] = pf
+                graph, ext = pf.shrink_graph, pf.ext_next
+            nxt = self._plan_on(graph, ext, cur.cursor + 1, speculative=True)
+            if nxt is None:
+                break  # the predicted shrink emptied the graph: no rest part
+            wave.append(nxt)
+            shrinks.append(None)
+        for p in wave:
+            self._bucketize(p)
+        return wave, shrinks
+
+    def _slice_stream(self, s: int):
+        """Slice ``s``'s CUDA stream as the calling thread's current stream
+        (nothing off the card). The kernels launch on the current stream
+        and a part's tensors are made and read on it, so a slice's parts
+        never touch another slice's memory or wait on its work."""
+        if self.slice_streams is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.slice_streams[s])
+
+    def _exchange(self, schedule, own_results: Dict[int, tuple],
+                  error: Optional[BaseException]) -> Dict[int, tuple]:
+        """Rank slices: hand every part's result from its slice's first rank
+        to every rank over the whole plan's world group, in cursor order.
+        A slice's failure travels the same way (in place of the results it
+        did not produce), so every rank raises the earliest cursor's error
+        instead of waiting on a broadcast. The busy seconds of each slice
+        are taken from the broadcast results, so every rank reports the
+        same ``slice_busy_s``."""
+        import torch.distributed as dist
+
+        me = self.fold_plan.ranks[self.fold_plan.rank]
+        group = self.fold_plan.world_group
+        out: Dict[int, tuple] = {}
+        first_error = None
+        for a in schedule.assignments:
+            src = self.slice_plans[a.slice_index].ranks[0]
+            box = [own_results.get(a.cursor, error) if src == me else None]
+            if group is not None:
+                dist.broadcast_object_list(box, src=src, group=group)
+            if isinstance(box[0], BaseException) or box[0] is None:
+                first_error = first_error or box[0] or RuntimeError(
+                    f"rank slice {a.slice_index} returned no result for part "
+                    f"cursor={a.cursor}")
+                continue
+            out[a.cursor] = box[0]
+            self.slice_busy_s[a.slice_index] += box[0][0].wall_time_s
+        if first_error is not None:
+            raise first_error
+        return out
+
+    def _run_wave(self, wave: List[PartPlan],
+                  shrinks: List[Optional[_Prefetch]]) -> Optional[PartPlan]:
+        """Conquer one wave across the slices, then merge strictly in plan
+        order. Returns the next wave's first plan (``None`` = done).
+
+        The LPT schedule places each non-empty part on a slice by its
+        modeled cost; every slice conquers its parts concurrently on its
+        own worker thread (and stream, on the card); only the lead part
+        consults or writes sweep snapshots. On rank slices this rank runs
+        only its own slice's worker and receives the other parts' results
+        (:meth:`_exchange`). The merge loop then validates each speculation
+        in plan order: on a hit the predicted shrink is adopted
+        (byte-identical to the sequential fold), on a miss the sync fold
+        runs and every later speculative conquer of the wave is discarded,
+        as the sequential loop would have recomputed them. With a watchdog
+        the wave is fault-tolerant (retry, blacklist, re-plan); its
+        telemetry folds into the run report."""
+        from repro_torch.core.partsched import (
+            WaveSchedule,
+            WaveTelemetry,
+            assign_parts,
+            conquer_wave,
+            cost_for_plan,
+        )
+
+        state = self.state
+        surviving = [
+            sp for sp in self.slice_specs if sp.index not in self.blacklisted
+        ]
+        live = [p for p in wave if not p.is_empty]
+        costs = [
+            cost_for_plan(p.bg, p.cursor, surviving[0]) for p in live
+        ]
+        schedule = assign_parts(costs, surviving)
+        # Divide-side accounting for the whole wave, booked on the main
+        # thread before the slice threads start (_conquer(account=False)).
+        self.preprocess_time_s += sum(
+            p.bucketize_time_s + p.extract_time_s for p in wave
+        )
+        lead_cursor = min((p.cursor for p in live), default=None)
+        by_cursor = {p.cursor: p for p in live}
+        assign_of = {a.cursor: a for a in schedule.assignments}
+
+        def _run_one(cursor: int, s: int, heartbeat=None):
+            plan = by_cursor[cursor]
+            fn = (
+                self.slice_decomposes[s]
+                if self.slice_decomposes is not None else None
+            )
+            with self._slice_stream(s):
+                out = self._conquer(
+                    plan, fn=fn, lead=(cursor == lead_cursor), account=False,
+                    heartbeat=heartbeat,
+                )
+            if self.slice_plans is None:
+                # Only slice ``s``'s worker writes index ``s``: no lock.
+                self.slice_busy_s[s] += out[0].wall_time_s
+            return out
+
+        if self.watchdog is not None:
+            run_part = _run_one
+        else:
+            # Fail-fast: the two-argument call (no heartbeat composed into
+            # on_sweep), so a custom decompose_fn without kwargs still works.
+            def run_part(cursor: int, s: int):
+                return _run_one(cursor, s)
+
+        tel = WaveTelemetry()
+        t0 = time.perf_counter()
+        try:
+            if self.slice_plans is None:
+                results = conquer_wave(
+                    schedule, run_part, slices=surviving, watchdog=self.watchdog,
+                    fault_plan=self.fault_plan, telemetry=tel,
+                )
+            else:
+                mine = next(i for i, p in enumerate(self.slice_plans) if p.rank >= 0)
+                own = WaveSchedule(
+                    [a for a in schedule.assignments if a.slice_index == mine],
+                    schedule.n_slices,
+                )
+                own_results, error = {}, None
+                try:
+                    own_results = conquer_wave(
+                        own, run_part, slices=[self.slice_specs[mine]],
+                        fault_plan=self.fault_plan, telemetry=tel,
+                    )
+                except Exception as exc:  # noqa: BLE001 -- sent to every rank
+                    error = exc
+                results = self._exchange(schedule, own_results, error)
+        finally:
+            self.conquer_wall_s += time.perf_counter() - t0
+            self.retries += tel.retries
+            self.replans += tel.replans
+            if tel.blacklisted:
+                self.degraded_waves += 1
+                self.blacklisted.update(tel.blacklisted)
+            self.fault_events.extend(tel.events)
+        retries_of: Dict[int, int] = {}
+        for e in tel.events:
+            if e.get("event") == "retry":
+                retries_of[e["cursor"]] = retries_of.get(e["cursor"], 0) + 1
+
+        for i, plan in enumerate(wave):
+            if plan.is_empty:
+                state.parts_done = plan.cursor + 1
+                self._checkpoint_boundary(None)
+                continue
+            res, density, start_sweep = results[plan.cursor]
+            a = assign_of[plan.cursor]
+
+            def stamp(r, _a=a):
+                # slice_index is the PLANNED placement; a re-planned part's
+                # actual slice is in the replan event.
+                r.slice_index = _a.slice_index
+                r.wave = self._wave_index
+                r.modeled_cost_bytes = _a.cost.total
+                r.retries = retries_of.get(_a.cursor, 0)
+
+            if plan.is_rest:
+                self._merge_rest(plan, res, density, start_sweep,
+                                 annotate=stamp)
+                return None
+            report, final_local = self._finalize_threshold(
+                plan, res, density, start_sweep
+            )
+            stamp(report)
+            pf = shrinks[i]
+            if pf is not None and bool(final_local.all()):
+                self.prefetch_hits += 1
+                self._adopt_shrink(plan, pf, report)
+                state.parts_done = plan.cursor + 1
+                self._checkpoint_boundary(report)
+                continue
+            # Miss (or the wave's un-speculated tail): fold synchronously,
+            # discard every later speculative conquer of this wave.
+            if pf is not None:
+                self.prefetch_misses += 1
+                self.speculation_discards += sum(
+                    1 for p in wave[i + 1:] if not p.is_empty
+                )
+            self._shrink_sync(plan, final_local, report)
+            state.parts_done = plan.cursor + 1
+            self._checkpoint_boundary(report)
+            if pf is not None and i < len(wave) - 1:
+                return self._build_plan(plan.cursor + 1)
+        return self._build_plan(wave[-1].cursor + 1)
+
+    def run_waves(self) -> None:
+        state = self.state
+        plan = self._build_plan(state.parts_done)
+        while plan is not None:
+            wave, shrinks = self._plan_wave(plan)
+            plan = self._run_wave(wave, shrinks)
+            self._wave_index += 1
+        if not state.complete:
+            # The shrink emptied the graph before the rest part.
+            state.complete = True
+            self._checkpoint_boundary(None)
+
     # ---------------- scheduler ---------------- #
     def run(self) -> None:
+        if self.part_parallel is not None:
+            self.run_waves()
+            return
         state = self.state
         plan = self._build_plan(state.parts_done)
         while plan is not None:
@@ -977,13 +1344,25 @@ class _PartPipeline:
                     raise
 
 
-_LATER_SLICE = {
-    "part_parallel": "part-parallel conquer (ROADMAP.md, queue 1, item 7)",
-    "part_parallel_plan": "part-parallel conquer (ROADMAP.md, queue 1, item 7)",
-    "slice_capacity_bytes": "part-parallel conquer (ROADMAP.md, queue 1, item 7)",
-    "slice_timeout_s": "fault-tolerant conquer (ROADMAP.md, queue 1, item 7)",
-    "max_retries": "fault-tolerant conquer (ROADMAP.md, queue 1, item 7)",
-}
+# Kernel libraries each built-in engine launches (kernels/build.py SOURCES).
+_ENGINE_KERNELS = {"fused": ("fused",), "kernel": ("hindex",)}
+
+
+def _prepare_card(names, n_slices: int, device) -> Optional[list]:
+    """On a CUDA device: build and load the kernel libraries ``names`` before
+    the first wave (an ``nvcc`` build inside a part would stall its slice's
+    heartbeat past a watchdog's timeout) and make one CUDA stream per slice.
+    ``None`` off the card."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    if names:
+        from repro_torch.kernels import build
+
+        build.build(names)
+        for name in names:
+            build.load(name)
+    return [torch.cuda.Stream(device=dev) for _ in range(n_slices)]
 
 
 def dc_kcore(
@@ -1011,6 +1390,7 @@ def dc_kcore(
     slice_capacity_bytes: Optional[int] = None,
     slice_timeout_s: Optional[float] = None,
     max_retries: Optional[int] = None,
+    retry_backoff_s: float = 0.05,
     fault_plan=None,
 ) -> tuple[np.ndarray, DCKCoreReport]:
     """Run DC-kCore. ``thresholds=()`` degenerates to the monolithic baseline
@@ -1061,29 +1441,110 @@ def dc_kcore(
     change. ``on_part_done`` fires after the save is *enqueued* in that
     mode; a crash raised from it still drains the pending save first.
 
-    ``fault_plan`` (a :class:`repro_torch.runtime.FaultPlan`) injects
-    crashes, hangs and slowdowns into the named sites ``boundary_fold``,
-    ``checkpoint_save`` and ``prefetch``; the run drains its worker and its
-    pending saves, releases injected hangs and re-raises.
+    ``part_parallel=S`` conquers up to ``S`` consecutive parts CONCURRENTLY
+    per wave: the wave planner chains speculative shrinks, the scheduler
+    (:mod:`repro_torch.core.partsched`) places each part on a slice by its
+    modeled collective + memory cost, and the merge validates the
+    predictions strictly in plan order, discarding the wave's tail on the
+    first miss. Coreness, reports, checkpoints, sweep snapshots and resume
+    are **byte-identical** to the sequential path. Without
+    ``part_parallel_plan`` the slices are worker threads sharing the
+    configured engine, each on its own CUDA stream when ``device`` is a
+    CUDA device (the kernels are built before the first wave). With it (a
+    :class:`~repro_torch.core.distributed.MeshPlan` over a process group;
+    every rank calls ``dc_kcore`` with the same arguments) the plan is split
+    into ``S`` rank slices along its first node axis, each part sweeps on
+    its slice's distributed engine (with the counts kernel on ``device``),
+    each rank receives
+    the other slices' results from their first ranks, and the E(v) boundary
+    folds run over the whole plan
+    (:attr:`DCKCoreReport.boundary_exchange_bytes`). Every rank then merges
+    and checkpoints the same way, so with ``checkpoint_dir`` each rank
+    needs a directory of its own. ``slice_capacity_bytes`` bounds each
+    slice's modeled resident bytes (the scheduler refuses oversized parts
+    with :class:`~repro_torch.core.partsched.SliceCapacityError`).
+    Mutually exclusive with ``overlap``: the wave subsumes the prefetch.
 
-    ``part_parallel`` (with its plan and slice capacity),
-    ``slice_timeout_s`` and ``max_retries`` belong to a later slice of the
-    port and raise :class:`NotImplementedError`.
+    ``slice_timeout_s`` / ``max_retries`` (require ``part_parallel``) make
+    the wave executor fault-TOLERANT: a failed part retries on its slice
+    with exponential backoff (``retry_backoff_s`` base) up to
+    ``max_retries`` times; a slice whose sweep heartbeat stalls past
+    ``slice_timeout_s``, or that runs out of retries, is blacklisted for
+    the rest of the run and its parts re-plan over the surviving slices
+    (S -> S-1 -> ... -> 1). Parts are idempotent over immutable inputs, so a
+    degraded run's coreness stays byte-identical; retries, blacklists and
+    degraded waves land in the report. Without either knob a slice failure
+    re-raises after the wave drains. The watchdog on rank slices is not
+    ported (a crashed or hung rank leaves its slice's collectives waiting;
+    ``ROADMAP.md``, queue 1) and raises :class:`NotImplementedError`.
+
+    ``fault_plan`` (a :class:`repro_torch.runtime.FaultPlan`) injects
+    crashes, hangs and slowdowns into the named sites ``slice_conquer``,
+    ``boundary_fold``, ``checkpoint_save`` and ``prefetch``; the run drains
+    its workers and its pending saves, releases injected hangs and
+    re-raises.
     """
-    later = {
-        "part_parallel": part_parallel, "part_parallel_plan": part_parallel_plan,
-        "slice_capacity_bytes": slice_capacity_bytes,
-        "slice_timeout_s": slice_timeout_s, "max_retries": max_retries,
-    }
-    for name, value in later.items():
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"dc_kcore({name}=...) is not ported yet: it comes with "
-                f"{_LATER_SLICE[name]}"
+    slice_decomposes = slice_specs = slice_plans = fold_plan = None
+    if part_parallel is not None:
+        if part_parallel < 1:
+            raise ValueError(f"part_parallel must be >= 1, got {part_parallel}")
+        if overlap:
+            raise ValueError("part_parallel subsumes overlap (the wave IS "
+                             "the speculation) — pass one or the other")
+        if part_parallel_plan is not None:
+            if decompose_fn is not None:
+                raise ValueError("part_parallel_plan builds one distributed "
+                                 "engine per mesh slice — decompose_fn would "
+                                 "be silently ignored")
+            if engine != "sorted" or int16:
+                raise ValueError("part_parallel_plan selects the distributed "
+                                 "engine; engine=/int16= would be silently "
+                                 "ignored")
+            if slice_timeout_s is not None or max_retries is not None:
+                raise NotImplementedError(
+                    "slice_timeout_s/max_retries on rank slices "
+                    "(part_parallel_plan) are not ported: a crashed or hung "
+                    "rank leaves its slice's collectives waiting, and a "
+                    "blacklist across ranks is a design of its own "
+                    "(ROADMAP.md, queue 1, \"the watchdog on rank slices\")")
+            from repro_torch.core.partsched import make_slice_decomposes, spec_of
+
+            slice_plans, slice_decomposes = make_slice_decomposes(
+                part_parallel_plan, part_parallel, use_kernel=True, device=device,
             )
+            slice_specs = [
+                spec_of(p, i, slice_capacity_bytes)
+                for i, p in enumerate(slice_plans)
+            ]
+            fold_plan = part_parallel_plan
+        else:
+            from repro_torch.core.partsched import SliceSpec
+
+            slice_specs = [
+                SliceSpec(i, 1, 1, slice_capacity_bytes)
+                for i in range(part_parallel)
+            ]
+    elif part_parallel_plan is not None:
+        raise ValueError("part_parallel_plan requires part_parallel")
+    watchdog = None
+    if slice_timeout_s is not None or max_retries is not None:
+        if part_parallel is None:
+            raise ValueError("slice_timeout_s/max_retries configure the "
+                             "part-parallel wave watchdog — they require "
+                             "part_parallel")
+        from repro_torch.core.partsched import WatchdogConfig
+
+        watchdog = WatchdogConfig(
+            slice_timeout_s=slice_timeout_s,
+            max_retries=2 if max_retries is None else int(max_retries),
+            backoff_s=float(retry_backoff_s),
+        )
     if ckpt_retain < 1:
         raise ValueError(f"ckpt_retain must be >= 1, got {ckpt_retain}")
+    # The kernel libraries the slices launch (none known for a custom engine).
+    slice_kernels = ("counts",) if part_parallel_plan is not None else ()
     if decompose_fn is None:
+        slice_kernels += _ENGINE_KERNELS.get(engine, ())
         decompose_fn = (  # noqa: E731
             lambda bg, **kw: decompose(bg, op=engine, int16=int16, device=device, **kw)
         )
@@ -1145,6 +1606,7 @@ def dc_kcore(
                 preprocess_time_s=0.0,
                 resumed_parts=resumed_parts,
                 overlap=overlap,
+                part_parallel=part_parallel or 0,
                 quarantined_steps=len(restore_events),
                 fault_events=list(restore_events),
             )
@@ -1158,6 +1620,9 @@ def dc_kcore(
             raise ValueError("checkpoint remaining-id map inconsistent with "
                              "its finalized mask")
 
+    slice_streams = None
+    if part_parallel is not None:
+        slice_streams = _prepare_card(slice_kernels, part_parallel, device)
     pipeline = _PartPipeline(
         state=state,
         remaining_graph=remaining_graph,
@@ -1177,6 +1642,14 @@ def dc_kcore(
         sweeps_mgr=sweeps_mgr,
         overlap=overlap,
         fault_plan=fault_plan,
+        part_parallel=part_parallel,
+        slice_decomposes=slice_decomposes,
+        slice_specs=slice_specs,
+        slice_plans=slice_plans,
+        slice_streams=slice_streams,
+        fold_plan=fold_plan,
+        device=device,
+        watchdog=watchdog,
     )
     try:
         pipeline.run()
@@ -1201,8 +1674,16 @@ def dc_kcore(
         overlap=overlap,
         prefetch_hits=pipeline.prefetch_hits,
         prefetch_misses=pipeline.prefetch_misses,
+        part_parallel=part_parallel or 0,
+        conquer_wall_s=pipeline.conquer_wall_s,
+        slice_busy_s=list(pipeline.slice_busy_s),
+        speculation_discards=pipeline.speculation_discards,
+        boundary_exchange_bytes=pipeline.boundary_exchange_bytes,
+        retries=pipeline.retries,
+        blacklisted_slices=sorted(pipeline.blacklisted),
+        degraded_waves=pipeline.degraded_waves,
         quarantined_steps=len(restore_events),
-        fault_events=list(restore_events),
+        fault_events=list(restore_events) + list(pipeline.fault_events),
     )
     if not bool((state.coreness >= 0).all()):
         raise MergeIncompleteError(

@@ -64,12 +64,17 @@ class MeshPlan:
     axes, bucket rows split over ``node_axes`` and neighbour slots over
     ``slot_axes``.
 
-    ``node_index`` / ``slot_index`` are this rank's row and slot blocks
-    (row-major over the node and slot axes). ``node_group`` holds the ranks
-    that share this rank's slot block, ``slot_group`` those that share its
-    row block, ``world_group`` every rank of the mesh; each is ``None``
-    when it would hold one rank. ``backend`` is the groups'
-    ``torch.distributed`` backend (empty for a one-rank plan).
+    ``ranks`` are the process group's ranks the mesh holds, in row-major
+    mesh order (``0 .. size-1`` for a whole group; a block of them for a
+    slice of a larger mesh, see
+    :func:`repro_torch.core.partsched.slice_mesh_plans`). ``rank`` is this
+    process's position in ``ranks`` and ``node_index`` / ``slot_index`` its
+    row and slot blocks (row-major over the node and slot axes); all three
+    are -1 on a plan that does not hold this process. ``node_group`` holds
+    the ranks that share this rank's slot block, ``slot_group`` those that
+    share its row block, ``world_group`` every rank of the mesh; each is
+    ``None`` when it would hold one rank (or not this one). ``backend`` is
+    the groups' ``torch.distributed`` backend (empty for a one-rank plan).
     :func:`repro_torch.launch.mesh.make_mesh_plan` builds one from an
     initialized process group; a one-rank plan needs none.
     """
@@ -85,6 +90,7 @@ class MeshPlan:
     slot_group: Any = None
     world_group: Any = None
     backend: str = ""
+    ranks: Tuple[int, ...] = (0,)
 
     def _axis_size(self, name: str) -> int:
         return self.shape[self.axis_names.index(name)]

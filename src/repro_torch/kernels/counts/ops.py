@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.plan import (GRID_LIMIT, HIST_SCRATCH, MAX_BINS, SMEM_PER_BLOCK, SMS,
-                                      checked_plan, hist_split)
+                                      checked_plan, count_launch, hist_split)
 
 # The kernel's block sizes (counts.cu kStepBlock, kWarpBlock): a step block
 # stages rounds of STEP_BLOCK / 8 or STEP_BLOCK / 16 rows, and enough rounds
@@ -184,7 +184,8 @@ def partial_counts_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int,
     Returns:
       [rows, cand] int32 counts, exactly ``rows`` rows (no padding).
 
-    Every kernel launch adds one to ``partial_counts_op.launches``.
+    Every kernel launch adds one to ``partial_counts_op.launches`` (and to the
+    launching thread's entry of ``partial_counts_op.launches_by_thread``).
     """
     if x.dim() != 2 or ext.shape != (x.shape[0],):
         raise ValueError(f"partial_counts_op: x {tuple(x.shape)} / ext "
@@ -211,8 +212,9 @@ def partial_counts_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int,
                     plan.smem_bytes, plan.rows_per_block, stream)
     if err:
         raise RuntimeError(f"kcore_partial_counts launch failed with CUDA error {err}")
-    partial_counts_op.launches += 1
+    count_launch(partial_counts_op)
     return out
 
 
 partial_counts_op.launches = 0
+partial_counts_op.launches_by_thread = {}

@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.kernels.hindex.ops import hindex_plain
 from repro_torch.kernels.plan import (  # noqa: F401  (re-exported)
-    MAX_BINS, PATHS, SMS, FusedPlan, checked_plan, fused_launch_plan)
+    MAX_BINS, PATHS, SMS, FusedPlan, checked_plan, count_launch, fused_launch_plan)
 
 _fn = None
 
@@ -108,7 +108,8 @@ def fused_sweep_op(
     Returns:
       ``(est [rows] int32, row_changed [rows] int32, dirty [n+1] int8)``.
 
-    Every kernel launch adds one to ``fused_sweep_op.launches``.
+    Every kernel launch adds one to ``fused_sweep_op.launches`` (and to the
+    launching thread's entry of ``fused_sweep_op.launches_by_thread``).
     """
     n1 = c.shape[0]
     if (c.dim() != 1 or ext_pad.shape != (n1,) or neigh.dim() != 2
@@ -150,8 +151,9 @@ def fused_sweep_op(
     )
     if err:
         raise RuntimeError(f"kcore_fused_sweep launch failed with CUDA error {err}")
-    fused_sweep_op.launches += 1
+    count_launch(fused_sweep_op)
     return est, changed, dirty
 
 
 fused_sweep_op.launches = 0
+fused_sweep_op.launches_by_thread = {}

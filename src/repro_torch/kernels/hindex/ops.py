@@ -23,7 +23,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.plan import PATHS, FusedPlan, checked_plan, fused_launch_plan
+from repro_torch.kernels.plan import (PATHS, FusedPlan, checked_plan, count_launch,
+                                      fused_launch_plan)
 
 # The plain version materializes at most this many [row, slot, candidate]
 # compares at a time (rows and candidates are chunked), so hub widths stay
@@ -91,7 +92,8 @@ def hindex_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int,
     Returns:
       [rows] int32 new estimates.
 
-    Every kernel launch adds one to ``hindex_op.launches``.
+    Every kernel launch adds one to ``hindex_op.launches`` (and to the
+    launching thread's entry of ``hindex_op.launches_by_thread``).
     """
     if x.dim() != 2 or x.shape[1] < 1 or ext.shape != (x.shape[0],):
         raise ValueError(f"hindex_op: x {tuple(x.shape)} / ext {tuple(ext.shape)} "
@@ -118,8 +120,9 @@ def hindex_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int,
                     plan.smem_bytes, plan.group, stream)
     if err:
         raise RuntimeError(f"kcore_hindex launch failed with CUDA error {err}")
-    hindex_op.launches += 1
+    count_launch(hindex_op)
     return out
 
 
 hindex_op.launches = 0
+hindex_op.launches_by_thread = {}

@@ -12,6 +12,7 @@ from here.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Callable, NamedTuple, Optional, Tuple
 
 # The card's limits, for the H100 SXM: its SMs; the shared memory one block
@@ -141,3 +142,18 @@ def checked_plan(who: str, plan: Optional[NamedTuple], make: Callable[..., Named
         raise ValueError(f"{who}: {plan} is not a launch plan for [{rows}, {width}] "
                          f"rows with cand {cand}")
     return plan
+
+
+# The wrappers' launch counters. Part-parallel conquer launches from several
+# slice threads at once, so a launch is counted under one lock.
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(op) -> None:
+    """Add one launch to ``op.launches`` and to the calling thread's tally in
+    ``op.launches_by_thread`` (keyed by thread name: slice ``i`` of a wave
+    runs on ``dckcore-conquer-<i>``), both under one lock."""
+    name = threading.current_thread().name
+    with _COUNT_LOCK:
+        op.launches += 1
+        op.launches_by_thread[name] = op.launches_by_thread.get(name, 0) + 1

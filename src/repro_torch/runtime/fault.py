@@ -15,8 +15,10 @@ crashes, hangs and slowdowns injected into *named sites* of the pipeline
 the CLIs (``--fault``) share one mechanism. Injected hangs park on an
 Event with a bounded timeout and then raise, so an abandoned worker thread
 always terminates (the test suite's thread-leak gate stays sound under
-chaos). The ``slice_conquer`` site belongs to part-parallel conquer, which
-the port does not have yet (``ROADMAP.md``, queue 1, item 7).
+chaos). ``slice_conquer`` is visited by the part-parallel wave executor
+(:func:`repro_torch.core.partsched.conquer_wave`) before each attempt of a
+part on a slice; with the watchdog armed a fault there is retried or
+re-planned in the run, while the other sites are fail-fast.
 """
 from __future__ import annotations
 

@@ -92,11 +92,21 @@ def test_dc_kcore_tile_policy_and_part_hook():
     dict(fault_plan=FaultPlan(), max_retries=1),
 ])
 def test_later_slice_options_raise(option):
-    """Part-parallel conquer and its watchdog are the next slice; they
-    raise alone and beside the ported ``overlap`` and ``fault_plan``."""
-    g = from_reference_arrays(rmat(6, 4, seed=0))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        dc_kcore(g, device="cpu", **option)
+    """Part-parallel conquer and its watchdog are ported: alone and beside
+    ``overlap`` and ``fault_plan`` each option raises the reference's error
+    with the reference's message, or runs to the reference's coreness where
+    the reference runs (``part_parallel=2``; a slice capacity alone, which
+    the sequential path does not read)."""
+    g = rmat(6, 4, seed=0)
+    try:
+        want, _ = ref_dc_kcore(g, **option)
+    except ValueError as exc:
+        with pytest.raises(ValueError) as got:
+            dc_kcore(from_reference_arrays(g), device="cpu", **option)
+        assert str(got.value) == str(exc)
+        return
+    core, _ = dc_kcore(from_reference_arrays(g), device="cpu", **option)
+    np.testing.assert_array_equal(core, want)
 
 
 def test_custom_engine_conflicts():
