@@ -47,7 +47,10 @@ and fails (non-zero exit, no result line) without them. Phases:
    ``rmat(20, 16, seed=0)`` with the thresholds (64, 16) and monolithic.
    Every run must equal the oracle; the counts
    kernel's launch counter is zeroed just before and read just after, and
-   must be above 0.
+   must be above 0. Then the monolithic run through
+   ``decompose_distributed`` with the engine's dirty push, the flat
+   max-scatter over every slot and the boolean-mask index, in turns: the
+   same trajectory, and each form's wall.
 6. Four ranks on the one card: four processes (this script with
    ``--fleet-rank``), gloo over a ``file://`` store, CUDA tensors, a
    (2, 2) data x model plan, on ``rmat(16, 16, seed=0)`` written by this
@@ -115,7 +118,22 @@ and fails (non-zero exit, no result line) without them. Phases:
     6's fleet: the (2, 2) plan split into two slices of two ranks,
     ``part_parallel=2``, the counts kernel. Last, the CLI with
     ``--part-parallel 2 --check`` on phase 8's npz of ``rmat(20, 16)``.
-12. The kernel table as one JSON line, then the result line.
+12. The dry-run. (a) ``python -m repro_torch.launch.kcore_dryrun`` with
+    ``--wire int16``, ``--split3 --wire int16`` and ``--slices 4``, each a
+    child process with its own fake 512-rank process group: the paper-scale
+    records (memory model, the traced sweep's peak bytes, bytes, int32 ops,
+    collectives and roofline on meta tensors), printed line by line; every
+    case record must carry its memory model. (b) The tally against the
+    card: one full sweep of the distributed engine (one rank, counts
+    kernel) at ``rmat(20, 16)`` traced on meta tensors, and the same sweep
+    on the card, whose ``max_memory_allocated`` above the baseline must lie
+    within 20% of the traced peak; the tally's bytes and roofline beside
+    the card's sweep time (CUDA events). The counts kernel's counter is
+    zeroed just before the card's sweep and read just after. (c) The three
+    k-core examples (``examples/torch/*.py --device cuda``) as child
+    processes, each to its oracle line. The dry-run children run beside
+    (b) and (c); they touch no GPU.
+13. The kernel table as one JSON line, then the result line.
 
 Nothing here imports JAX or the JAX package (``src/repro``).
 """
@@ -687,6 +705,7 @@ def main() -> int:
     launches["counts"] = partial_counts_op.launches
     if launches["counts"] <= 0:
         raise AssertionError("the counts kernel never launched on the distributed main path")
+    dirty_push_forms(bg)
 
     # ---------------- phase 6: four ranks on the one card ---------------- #
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -818,6 +837,7 @@ def main() -> int:
         seq_walls = phase_overlap(g, oracle, work)
         phase_serve(g, npz_path, work)
         phase_part_parallel(g, oracle, seq, seq_walls, small, small_oracle, npz_path, work)
+        phase_dryrun(bg)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -826,7 +846,7 @@ def main() -> int:
     if bad:
         raise AssertionError(f"JAX or the JAX package was imported: {bad}")
 
-    # ---------------- phase 12: result lines ---------------- #
+    # ---------------- phase 13: result lines ---------------- #
     kernels = [
         {"name": "fused_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused.cu",
@@ -854,6 +874,49 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def dirty_push_forms(bg) -> None:
+    """The distributed engine's dirty push (``distributed._push_dirty``, a
+    max-scatter staged per row) against the flat max-scatter over every slot
+    (the reference's expression) and the boolean-mask index it replaced, on
+    the one-rank monolithic run at rmat(20, 16), in turns; the same
+    trajectory each time."""
+    import torch
+
+    from repro_torch.core import distributed as dist_mod
+
+    def flat(tile_dirty, node_tile, neigh, row_changed):
+        return tile_dirty.scatter_reduce_(
+            0, node_tile[neigh].long().flatten(),
+            row_changed[:, None].expand_as(neigh).to(torch.int32).flatten(), reduce="amax")
+
+    def mask(tile_dirty, node_tile, neigh, row_changed):  # a sync per bucket
+        tile_dirty[node_tile[neigh[row_changed]].long()] = 1
+        return tile_dirty
+
+    engine = dist_mod._push_dirty
+    forms = {"row-staged": engine, "flat": flat, "mask": mask}
+    walls = {name: [] for name in forms}
+    first = None
+    try:
+        for name in ["row-staged", "flat", "mask", "mask", "flat", "row-staged"]:
+            dist_mod._push_dirty = forms[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = dist_mod.decompose_distributed(bg, dist_mod.MeshPlan(), use_kernel=True,
+                                                 device="cuda")
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            traj = (res.coreness.tobytes(), res.comm_per_iter, res.active_rows_per_iter)
+            first = first or traj
+            if traj != first:
+                raise AssertionError(f"dirty push {name}: another trajectory")
+    finally:
+        dist_mod._push_dirty = engine
+    log(f"dirty push forms, one-rank monolithic decompose_distributed at rmat(20,16), "
+        f"{res.iterations} sweeps, same trajectory: " + ", ".join(
+            f"{name} {' / '.join(f'{w:.3f}' for w in ws)} s" for name, ws in walls.items()))
 
 
 def same_csr(a, b) -> bool:
@@ -1134,6 +1197,121 @@ def phase_part_parallel(g, oracle, seq, seq_walls, small, small_oracle, npz_path
     log(f"part-parallel CLI (--part-parallel 2 --engine fused --check on the npz, "
         f"{time.perf_counter() - t0:.1f}s): " + " | ".join(lines))
     log(f"part-parallel phase (stream slices, watchdog, crash and resume, CLI): "
+        f"{time.perf_counter() - t_phase:.1f}s")
+
+
+def phase_dryrun(bg) -> None:
+    """Phase 12: the paper-scale dry-run, the tally against the card, and
+    the examples."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.distributed import (MeshPlan, make_sweep_fn, node_tile_map,
+                                              shard_buckets)
+    from repro_torch.core.hindex import hindex_of_sequence
+    from repro_torch.kernels.counts import partial_counts_op
+    from repro_torch.launch.kcore_dryrun import ARTIFACT_DIR, traced_sweep
+    from repro_torch.roofline.analysis import roofline_terms
+
+    t_phase = time.perf_counter()
+    started = time.time()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    runs = [["--wire", "int16"], ["--split3", "--wire", "int16"], ["--slices", "4"]]
+    children = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.kcore_dryrun", *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for args in runs]
+    try:
+        # (b) One full sweep, traced on meta tensors and run on the card.
+        plan = MeshPlan()
+        cand = max(1, hindex_of_sequence(bg.degrees.astype(np.int64) + bg.ext))
+        start = np.concatenate([bg.degrees.astype(np.int32) + bg.ext.astype(np.int32), [-1]])
+        state = {
+            "c": torch.from_numpy(start.astype(np.int32)),
+            "ext_pad": torch.from_numpy(np.concatenate([bg.ext, [0]]).astype(np.int32)),
+            "node_tile": torch.from_numpy(node_tile_map(bg)),
+        }
+        meta = {k: v.to("meta") for k, v in state.items()}
+        tally, trace_s = traced_sweep(plan, cand, meta["c"], meta["ext_pad"],
+                                      meta["node_tile"], shard_buckets(bg, plan, "meta"))
+        cuda = {k: v.to("cuda") for k, v in state.items()}
+        buckets = shard_buckets(bg, plan, "cuda")
+        sweep = make_sweep_fn(plan, cand, use_kernel=True)
+        active = np.ones(len(buckets), dtype=bool)
+        c_run = cuda["c"].clone()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        partial_counts_op.launches = 0
+        sweep(c_run, cuda["ext_pad"], active, cuda["node_tile"], buckets)
+        torch.cuda.synchronize()
+        launches = partial_counts_op.launches
+        card_peak = torch.cuda.max_memory_allocated() - base
+        del c_run
+        runs_c = [cuda["c"].clone() for _ in range(7)]
+        t0 = time.perf_counter()  # the host's enqueue of one sweep, unsynchronized
+        sweep(runs_c.pop(), cuda["ext_pad"], active, cuda["node_tile"], buckets)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        sweep_ms = device_time_ms(
+            torch, lambda: sweep(runs_c.pop(), cuda["ext_pad"], active, cuda["node_tile"],
+                                 buckets), reps=5)
+        rl = roofline_terms(tally.int_ops, tally.hbm_bytes, tally.collectives)
+        top = sorted(tally.bytes_by_op.items(), key=lambda kv: -kv[1])[:5]
+        bound_s = max(rl.compute_s, rl.memory_s, rl.collective_s)
+        ratio = tally.peak_bytes / card_peak
+        log(f"dry-run calibration, one full sweep of the distributed engine (1x1, counts "
+            f"kernel) at {len(buckets)} buckets, cand={cand}: traced peak "
+            f"{tally.peak_bytes:,} B, card max_memory_allocated above baseline {card_peak:,} B "
+            f"(traced / card {ratio:.4f}); traced {tally.hbm_bytes:,} B moved, "
+            f"{tally.int_ops:,} int32 ops, roofline {bound_s * 1e3:.4f} ms [{rl.bottleneck}]; "
+            f"card sweep {sweep_ms:.4f} ms (CUDA events, median of 5; the host enqueues it "
+            f"in {enqueue_ms:.2f} ms, so above {SLEEP_CYCLES / 1.98e6:.0f} ms the events time "
+            f"the host); counts launches "
+            f"{launches}; trace {trace_s:.2f}s")
+        log("  traced bytes by op: " + ", ".join(
+            f"{name} {b:,} ({b / tally.hbm_bytes:.1%})" for name, b in top))
+        if abs(ratio - 1) > 0.2:
+            raise AssertionError(f"dry-run calibration: traced peak {tally.peak_bytes} B is "
+                                 f"not within 20% of the card's {card_peak} B")
+        if launches != len(buckets):
+            raise AssertionError(f"dry-run calibration: {launches} counts launches for "
+                                 f"{len(buckets)} buckets")
+
+        # (c) The examples on the card.
+        for name, oracle_line in (("quickstart", "all three methods consistent"),
+                                  ("multipart_divide", "more parts -> less communication"),
+                                  ("kcore_end_to_end", "CONSISTENT")):
+            t0 = time.perf_counter()
+            ex = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py"),
+                 "--device", "cuda"], cwd=ROOT, env=env, capture_output=True, text=True,
+                timeout=600)
+            for line in ex.stdout.splitlines():
+                log(f"  example {name}: {line}")
+            if ex.returncode != 0 or oracle_line not in ex.stdout:
+                log(ex.stderr[-4000:])
+                raise AssertionError(f"example {name}: exit {ex.returncode}, oracle line "
+                                     f"{'found' if oracle_line in ex.stdout else 'missing'}")
+            log(f"example {name} --device cuda: exit 0 in {time.perf_counter() - t0:.1f}s")
+
+        # (a) The paper-scale records.
+        for args, child in zip(runs, children):
+            out, _ = child.communicate(timeout=600)
+            for line in out.splitlines():
+                log(f"  kcore_dryrun {' '.join(args)}: {line}")
+            if child.returncode != 0:
+                raise AssertionError(f"kcore_dryrun {args}: exit {child.returncode}")
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+    records = [json.loads(p.read_text()) for p in Path(ARTIFACT_DIR).glob("*__2x16x16.json")
+               if p.stat().st_mtime >= started]
+    if len(records) != 18 or any("memory_model" not in r for r in records):
+        raise AssertionError(f"kcore_dryrun: {len(records)} case records, want 18, each "
+                             f"with its memory model")
+    log(f"dry-run phase (records, calibration, examples): "
         f"{time.perf_counter() - t_phase:.1f}s")
 
 

@@ -337,6 +337,22 @@ def _partial_counts(gathered: torch.Tensor, ext_rows: torch.Tensor, cand: int,
     return torch.cat(chunks, dim=1)
 
 
+def _push_dirty(tile_dirty: torch.Tensor, node_tile: torch.Tensor, neigh: torch.Tensor,
+                row_changed: torch.Tensor) -> torch.Tensor:
+    """``tile_dirty`` [nb + 1] with the buckets of the changed rows'
+    neighbour slots set: the reference's max-scatter of the broadcast
+    changed bit over ``node_tile[neigh]``, staged per row (each row scatters
+    into its own row of a [rows, nb + 1] table, then one amax over the
+    rows). It indexes with no boolean mask, so it needs no device-to-host
+    sync and runs on meta tensors; a flat scatter over every slot would
+    serialize on the nb + 1 targets' atomics."""
+    hit = torch.zeros(neigh.shape[0], tile_dirty.shape[0], dtype=torch.int32,
+                      device=tile_dirty.device)
+    hit.scatter_reduce_(1, node_tile[neigh].long(),
+                        row_changed[:, None].expand_as(neigh).to(torch.int32), reduce="amax")
+    return torch.maximum(tile_dirty, hit.amax(dim=0))
+
+
 def make_sweep_fn(plan: MeshPlan, cand: int, use_kernel: bool = False,
                   frontier: bool = True):
     """The sweep of one rank: ``sweep(c, ext_pad, active, node_tile,
@@ -375,7 +391,7 @@ def make_sweep_fn(plan: MeshPlan, cand: int, use_kernel: bool = False,
             est = est.to(c.dtype)
             if frontier:
                 row_changed = (est != c[b.ids]) & (b.ids != sentinel)
-                tile_dirty[node_tile[b.neigh[row_changed]].long()] = 1
+                tile_dirty = _push_dirty(tile_dirty, node_tile, b.neigh, row_changed)
             if ns > 1:
                 est_full = _all_gather(plan, est, plan.node_group, ns)
                 ids_full = _all_gather(plan, b.ids, plan.node_group, ns)

@@ -3,7 +3,8 @@ version.
 
 :func:`partial_counts_op` launches ``csrc/counts.cu`` for CUDA tensors and
 runs :func:`partial_counts_plain` for CPU tensors; it never falls back from
-one to the other. :func:`partial_counts_plain` transcribes the JAX
+one to the other. For meta tensors (the dry-run's traced sweep) it returns
+the kernel's output shape. :func:`partial_counts_plain` transcribes the JAX
 package's oracle (``repro/kernels/counts/ref.py``): per row, the suffix
 counts over the LOCAL neighbour-slot shard
 
@@ -198,9 +199,16 @@ def partial_counts_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int,
     plan = checked_plan("partial_counts_op", plan, counts_launch_plan, rows, width, cand)
     if x.device.type == "cpu" and ext.device.type == "cpu":
         return partial_counts_plain(x, ext, cand=cand)
+    if x.device.type == "meta" and ext.device.type == "meta":
+        # The kernel's shape function, for a traced dry-run: a meta tensor
+        # has no data. The tally prices what the kernel would do.
+        out = torch.empty(rows, int(cand), dtype=torch.int32, device="meta")
+        _record(x, out)
+        return out
     if x.device.type != "cuda" or ext.device != x.device:
         raise ValueError(f"partial_counts_op: x on {x.device}, ext on {ext.device}; "
-                         f"both must be on one CUDA device (or both on the CPU)")
+                         f"both must be on one CUDA device, both on the CPU or both "
+                         f"on meta")
     if not (x.is_contiguous() and ext.is_contiguous()):
         raise ValueError("partial_counts_op: x and ext must be contiguous")
     out = torch.empty(rows, int(cand), dtype=torch.int32, device=x.device)
@@ -214,6 +222,18 @@ def partial_counts_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int,
         raise RuntimeError(f"kcore_partial_counts launch failed with CUDA error {err}")
     count_launch(partial_counts_op)
     return out
+
+
+def _record(x: torch.Tensor, out: torch.Tensor) -> None:
+    """Charge the kernel's work to an active :class:`~repro_torch.roofline.
+    tally.Tally` (its meta shape function does none of it through aten): the
+    slots and ext read once, the counts written once, one int32 op per
+    slot."""
+    from repro_torch.roofline.tally import record_kernel
+
+    rows = x.shape[0]
+    record_kernel("partial_counts", read_bytes=x.numel() * 4 + rows * 4,
+                  write_bytes=out.numel() * 4, int_ops=x.numel())
 
 
 partial_counts_op.launches = 0

@@ -7,9 +7,16 @@ initialized (``torch.distributed.init_process_group`` with the backend,
 address, world size and rank of its choice). Rank ``r`` sits at the
 row-major coordinate ``r`` of the mesh. :func:`sub_mesh_plan` lays a mesh
 over a block of those ranks (a part-parallel slice).
+
+:func:`make_production_plan` is the counterpart of
+``repro.launch.mesh.make_production_mesh``: the paper-scale mesh the
+dry-run prices, laid over a process group of the ``"fake"`` backend that
+:func:`fake_process_group` opens (512 ranks in one process, no device and
+no network; its collectives run on meta tensors and move nothing).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -139,3 +146,33 @@ def sub_mesh_plan(plan: MeshPlan, shape: Sequence[int], ranks: Sequence[int],
         raise ValueError(f"sub-mesh {shape} needs {math.prod(shape)} ranks, got {ranks}")
     return _plan_over(shape, plan.axis_names, plan.node_axes, plan.slot_axes, ranks, me,
                       world_group=None, backend=plan.backend)
+
+
+def make_production_plan(*, multi_pod: bool = False) -> MeshPlan:
+    """The production mesh: ``(2, 16, 16)`` over ``("pod", "data",
+    "model")`` (512 ranks) or ``(16, 16)`` over ``("data", "model")`` (256),
+    rows over the "pod" and "data" axes and slots over "model", seen from
+    the process group's rank. It needs an initialized process group of that
+    many ranks (the dry-run's :func:`fake_process_group`; every rank of an
+    SPMD sweep has the same shapes, so rank 0 stands for all of them)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh_plan(shape, axes)
+
+
+@contextlib.contextmanager
+def fake_process_group(world_size: int):
+    """Initialize the default process group with PyTorch's ``"fake"``
+    backend as rank 0 of ``world_size`` ranks, and destroy it on the way
+    out. The backend ships with PyTorch (``torch.testing._internal.
+    distributed.fake_pg``); without it this raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_process_group: a process group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=int(world_size))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -1,1 +1,2 @@
-"""H100 constants and the k-core sweep's roofline cost model."""
+"""H100 constants, the k-core sweep's roofline cost model, and the dry-run's
+tally of a traced call with its roofline terms."""

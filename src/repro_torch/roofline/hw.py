@@ -19,6 +19,18 @@ at the 1,980 MHz maximum SM clock of the SXM part. A card capped below
 700 W may clock lower under load; :func:`int32_ops_per_s` recomputes the
 rate from the SM count and the clock read on the card (``nvidia-smi
 --query-gpu=clocks.max.sm``).
+
+The fleet's links, for the collective term of the dry-run's roofline
+(data-sheet constants, not measurements):
+
+* NVLink 4 at 900 GB/s per GPU, 450 GB/s each way, among the 8 GPUs of one
+  node (H100 SXM data sheet; the HGX H100 8-GPU board joins them all to
+  all through NVSwitch);
+* one 400 Gb/s NDR InfiniBand port per GPU, 50 GB/s each way, between
+  nodes (DGX H100: eight ConnectX-7 ports for its eight GPUs).
+
+A ring moves each of its wire bytes once in one direction, so a link is
+priced at its one-way rate.
 """
 
 HBM_BW = 3.35e12  # bytes/s
@@ -35,3 +47,7 @@ def int32_ops_per_s(sms: int = SMS, sm_clock_hz: float = SM_CLOCK_HZ) -> float:
 
 
 PEAK_INT32_OPS = int32_ops_per_s()
+
+NVLINK_BW = 450e9  # bytes/s each way per GPU (NVLink 4, 900 GB/s both ways)
+NVLINK_DOMAIN = 8  # GPUs one NVLink switch fabric joins (one HGX node)
+IB_BW = 50e9  # bytes/s each way per GPU (one 400 Gb/s NDR port)
