@@ -133,7 +133,27 @@ and fails (non-zero exit, no result line) without them. Phases:
     k-core examples (``examples/torch/*.py --device cuda``) as child
     processes, each to its oracle line. The dry-run children run beside
     (b) and (c); they touch no GPU.
-13. The kernel table as one JSON line, then the result line.
+13. The LM serving path (``repro_torch.models``, ``runtime/serve_loop.py``,
+    ``launch/serve.py``), with the k-core kernels' counters zeroed just
+    before and read just after (they must stay 0: the path's products and
+    attention are torch matmuls, with no Pallas counterpart). (a) qwen3-8b
+    at its published widths and depth (8.19 B parameters, f32, drawn on the
+    card from seed 0), bf16 activations: a 4 x 512-token prompt and 64
+    greedy tokens after a 4-token warm-up call; every logit finite, every
+    token in the vocab; the prefill time, the median decode time a token,
+    tokens/s and ``max_memory_allocated`` beside their bounds, and one
+    decode step and one prefill under ``torch.profiler`` (device busy time,
+    kernel count, idle share, costliest kernels). (b) The same parameters
+    with f32 activations and TF32 off: 16 teacher-forced decode steps after
+    a 32-token prefill against one forward over the same tokens, within the
+    reference's decode tolerance (atol 2e-3, rtol 1e-3). (c) mamba2-130m at
+    its published widths (in f32) and every architecture's smoke config:
+    the card against the CPU on the same parameters (every cross gate 0.5),
+    logits within atol 1e-4 and rtol 1e-4, or the CPU's own movement under
+    a one-ulp change of the parameters where larger, and 8 greedy tokens
+    equal wherever the CPU's top-two margin exceeds 1e-3. (d) ``python -m
+    repro_torch.launch.serve --arch qwen3-8b`` as a child process.
+14. The kernel table as one JSON line, then the result line.
 
 Nothing here imports JAX or the JAX package (``src/repro``).
 """
@@ -838,6 +858,7 @@ def main() -> int:
         phase_serve(g, npz_path, work)
         phase_part_parallel(g, oracle, seq, seq_walls, small, small_oracle, npz_path, work)
         phase_dryrun(bg)
+        phase_lm()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -846,7 +867,7 @@ def main() -> int:
     if bad:
         raise AssertionError(f"JAX or the JAX package was imported: {bad}")
 
-    # ---------------- phase 13: result lines ---------------- #
+    # ---------------- phase 14: result lines ---------------- #
     kernels = [
         {"name": "fused_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused.cu",
@@ -1313,6 +1334,222 @@ def phase_dryrun(bg) -> None:
                              f"with its memory model")
     log(f"dry-run phase (records, calibration, examples): "
         f"{time.perf_counter() - t_phase:.1f}s")
+
+
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 512, 64  # phase 13(a): qwen3-8b serving
+LM_PARITY_PROMPT, LM_PARITY_STEPS = 32, 16  # phase 13(b): decode against forward
+
+
+def _max_excess(got, want, atol, rtol):
+    """Largest ``|got - want| - (atol + rtol * |want|)``: <= 0 where they
+    agree within the tolerance (numpy's ``assert_allclose`` rule)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def _profile(torch, fn, n: int = 5) -> str:
+    """``fn()`` under ``torch.profiler``: its wall time, the device's busy
+    time (the sum of its kernels' times), their count, the idle share, and
+    the ``n`` costliest kernels. (A CUDA-event bracket with the stream held
+    by a sleep kernel, as the k-core phases time, does not work here: a
+    step's few thousand launches overflow the launch queue, and the host
+    blocks behind the held stream.)"""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+                  reverse=True)  # the kernels, not the host ops above them
+    if not rows:
+        return f"wall {wall_ms:.3f} ms under the profiler, which saw no device time"
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    return (f"wall {wall_ms:.3f} ms under the profiler, device busy {busy_ms:.3f} ms over "
+            f"{sum(r[1] for r in rows):,} kernels (idle {1 - busy_ms / wall_ms:.1%}); costliest: "
+            + "; ".join(f"{key[:56]} x{cnt} {t / 1e3:.3f} ms" for t, cnt, key in rows[:n]))
+
+
+def phase_lm() -> None:
+    """Phase 13: the LM serving path (``repro_torch.models``,
+    ``runtime/serve_loop.py``, ``launch/serve.py``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCHS, get_config, get_smoke_config
+    from repro_torch.kernels.counts import partial_counts_op
+    from repro_torch.kernels.fused import fused_sweep_op
+    from repro_torch.kernels.hindex import hindex_op
+    from repro_torch.launch.serve import card_name, generate, random_inputs
+    from repro_torch.models.model import CausalLM
+    from repro_torch.models.module import count_params, init_params
+    from repro_torch.models.parity import DECODE_TOL, f32_tolerance, greedy_agreement, \
+        ulp_perturbed
+    from repro_torch.runtime import greedy_generate
+
+    t_phase = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    card = card_name(dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    counters = (fused_sweep_op, hindex_op, partial_counts_op)
+    for op in counters:
+        op.launches = 0
+
+    # (a) qwen3-8b at its published widths and depth, bf16 activations.
+    cfg = get_config("qwen3-8b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init_params(CausalLM(cfg, device=dev), 0)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = count_params(model)
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    prompt, _ = random_inputs(cfg, LM_BATCH, LM_PROMPT, 0, dev)
+    generate(model, prompt, 4)  # warm-up: cuBLAS handles and kernel choices
+    res = generate(model, prompt, LM_NEW)
+    tokens = res["tokens"]
+    if not res["all_finite"]:
+        raise AssertionError("qwen3-8b: non-finite logits")
+    if tokens.shape != (LM_BATCH, LM_NEW) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"qwen3-8b: tokens {tuple(tokens.shape)} outside [0, "
+                             f"{cfg.vocab_size})")
+    dec_ms = res["decode_ms_median"]
+    # Least times, from the card's published peaks (3.35 TB/s, 989 TFLOP/s
+    # bf16). A decode step reads every f32 weight but the embedding table
+    # (gathered, 4 rows), writes its bf16 cast and reads that cast again.
+    emb_bytes = model.embed.tokens.numel() * 4
+    cast_bytes = (param_bytes - emb_bytes) * 2  # f32 read + bf16 write + bf16 read
+    dec_bound_ms = cast_bytes / 3.35e12 * 1e3
+    dec_bf16_ms = (param_bytes - emb_bytes) / 2 / 3.35e12 * 1e3
+    flops = 2 * LM_BATCH * LM_PROMPT * (n_params - model.embed.tokens.numel()) + \
+        4 * LM_BATCH * cfg.n_heads * LM_PROMPT ** 2 * cfg.head_dim * cfg.n_layers
+    pre_bound_ms = max(flops / 989e12, cast_bytes / 3.35e12) * 1e3
+    log(f"LM serve qwen3-8b (published widths, {cfg.n_layers} layers, {n_params:,} params, "
+        f"{param_bytes:,} B f32; drawn on the card from seed 0 in {init_s:.2f}s): batch "
+        f"{LM_BATCH} x prompt {LM_PROMPT}, {LM_NEW} greedy tokens, bf16 activations; "
+        f"{card}")
+    log(f"  prefill {res['prefill_ms']:.3f} ms (bound {pre_bound_ms:.3f} ms: "
+        f"{flops / 1e12:.2f} TFLOP at 989 TFLOP/s, {cast_bytes / 1e9:.2f} GB at 3.35 TB/s); "
+        f"decode median {dec_ms:.3f} ms/token over {len(res['decode_ms'])} steps (min "
+        f"{min(res['decode_ms']):.3f}, max {max(res['decode_ms']):.3f}; bound with per-use "
+        f"casts {dec_bound_ms:.3f} ms, with bf16 weights kept {dec_bf16_ms:.3f} ms); "
+        f"{LM_BATCH / dec_ms * 1e3:.1f} decode tokens/s, {LM_BATCH * LM_NEW / res['wall_s']:.1f}"
+        f" tokens/s over the whole call ({res['wall_s']:.3f}s); peak "
+        f"{res['peak_bytes']:,} B allocated; every logit finite, tokens in [0, vocab)")
+
+    # Where the time goes: the profiler's kernel times against the wall.
+    with torch.inference_mode():
+        caches = model.prefill(prompt, max_len=LM_PROMPT + LM_NEW)[1]
+        tok, pos = tokens[:, :1], torch.full((LM_BATCH,), LM_PROMPT, device=dev)
+        log(f"  one decode step: {_profile(torch, lambda: model.decode_step(caches, tok, pos))}")
+        log(f"  one prefill: "
+            f"{_profile(torch, lambda: model.prefill(prompt, max_len=LM_PROMPT + 1))}")
+    del caches
+
+    # (b) the same parameters, f32 activations, TF32 off: 16 teacher-forced
+    # decode steps against one full forward over the same tokens.
+    model.cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        seq = torch.randint(0, cfg.vocab_size, (2, LM_PARITY_PROMPT + LM_PARITY_STEPS),
+                            generator=gen, device=dev)
+        with torch.inference_mode():
+            full = model(seq)[0]
+            _, caches = model.prefill(seq[:, :LM_PARITY_PROMPT], max_len=seq.shape[1])
+            worst, worst_excess = 0.0, float("-inf")
+            for t in range(LM_PARITY_STEPS):
+                p = LM_PARITY_PROMPT + t
+                lg, caches = model.decode_step(caches, seq[:, p:p + 1],
+                                               torch.full((2,), p, device=dev))
+                worst = max(worst, float((lg[:, 0] - full[:, p]).abs().max()))
+                worst_excess = max(worst_excess, _max_excess(lg[:, 0], full[:, p],
+                                                             **DECODE_TOL))
+        if worst_excess > 0:
+            raise AssertionError(f"qwen3-8b f32 decode vs forward: max abs diff {worst:.3e} "
+                                 f"outside atol 2e-3 rtol 1e-3")
+        log(f"  f32 parity (TF32 off): {LM_PARITY_STEPS} decode steps after a "
+            f"{LM_PARITY_PROMPT}-token prefill against one forward over the same tokens: max "
+            f"abs diff {worst:.3e} (max |logit| {float(full.abs().max()):.3f}), within atol "
+            f"2e-3 rtol 1e-3")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    del model, full, caches
+    torch.cuda.empty_cache()
+
+    # (c) mamba2-130m at its published widths and every smoke config: the
+    # card against the CPU on the same parameters, in f32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cases = [("mamba2-130m (published)",
+                  dataclasses.replace(get_config("mamba2-130m"), dtype=torch.float32))]
+        cases += [(f"{arch} (smoke)", get_smoke_config(arch)) for arch in ARCHS]
+        for label, c in cases:
+            t0 = time.perf_counter()
+            ref = init_params(CausalLM(c, device=cpu), 0)
+            with torch.no_grad():
+                for name, prm in ref.named_parameters():
+                    if name.endswith("cross_gate"):
+                        prm.fill_(0.5)  # nonzero: the cross-attention path counts
+            onc = CausalLM(c, device=dev)
+            onc.load_state_dict(ref.state_dict())
+            # The CPU's own movement under one ulp of every parameter, for
+            # the tolerance (models/parity.py).
+            moved = CausalLM(c, device=cpu)
+            moved.load_state_dict(ulp_perturbed(ref.state_dict()))
+            prompt, extras = random_inputs(c, 2, 16, 0, cpu)
+            ex_dev = None if extras is None else {k: v.to(dev) for k, v in extras.items()}
+            with torch.inference_mode():
+                want = ref(prompt, extras)[0]
+                got = onc(prompt.to(dev), ex_dev)[0]
+                tol = f32_tolerance(want, moved(prompt, extras)[0])
+                if _max_excess(got, want, **tol) > 0:
+                    raise AssertionError(
+                        f"{label}: card logits differ from the CPU's by "
+                        f"{float((got.cpu() - want).abs().max()):.3e}, outside atol "
+                        f"{tol['atol']:.3g} rtol {tol['rtol']:.3g}")
+                g_cpu = greedy_generate(ref, prompt, 8, extras=extras)
+                g_dev = greedy_generate(onc, prompt.to(dev), 8, extras=ex_dev)
+
+                def logits_at(row, t):
+                    seq = torch.cat([prompt[row], g_cpu[row, :t]])[None]
+                    row_ex = (None if extras is None
+                              else {k: v[row:row + 1] for k, v in extras.items()})
+                    return ref(seq, row_ex)[0][0, -1]
+
+                agree = greedy_agreement(g_dev, g_cpu, logits_at, c.vocab_size)
+            log(f"  card vs cpu, {label}, f32: logits max abs diff "
+                f"{float((got.cpu() - want).abs().max()):.3e} (tolerance atol {tol['atol']:.3g}, "
+                f"rtol {tol['rtol']:.3g}; max |logit| {float(want.abs().max()):.3f}); greedy 8 "
+                f"tokens {agree}; {time.perf_counter() - t0:.2f}s")
+            del ref, onc, moved
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+
+    # The launcher as a user runs it, on the card at full width.
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen3-8b"],
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(SRC)))
+    for line in cli.stdout.splitlines():
+        log(f"  launch.serve: {line}")
+    if cli.returncode != 0:
+        log(cli.stderr[-4000:])
+        raise AssertionError(f"python -m repro_torch.launch.serve: exit {cli.returncode}")
+    log(f"  launch.serve --arch qwen3-8b: {time.perf_counter() - t0:.1f}s in its own process")
+    launched = {op.__name__: op.launches for op in counters}
+    if any(launched.values()):
+        raise AssertionError(f"the LM path launched a k-core kernel: {launched}")
+    log(f"LM phase: {time.perf_counter() - t_phase:.1f}s; k-core kernel launches on the LM "
+        f"path {launched} (its products and attention are torch matmuls: no Pallas "
+        f"counterpart)")
 
 
 def _serve_batches(g0, seed):

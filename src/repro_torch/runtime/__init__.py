@@ -1,4 +1,5 @@
-"""Runtime utilities of the port: failure injection and retries."""
+"""Runtime utilities of the port: failure injection and retries, and the
+greedy serving loop of the LM harness."""
 from repro_torch.runtime.fault import (
     FAULT_SITES,
     FailureInjector,
@@ -7,6 +8,7 @@ from repro_torch.runtime.fault import (
     InjectedFailure,
     run_with_retries,
 )
+from repro_torch.runtime.serve_loop import greedy_generate
 
 __all__ = [
     "FailureInjector",
@@ -15,4 +17,5 @@ __all__ = [
     "FAULT_SITES",
     "InjectedFailure",
     "run_with_retries",
+    "greedy_generate",
 ]

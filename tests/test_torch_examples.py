@@ -3,7 +3,11 @@ package's (``examples/*.py``): each pair runs as two child interpreters side
 by side, and every printed line that carries no seconds must be equal
 (graph sizes, ``k_max``, ``comm``, ``peak``, the parts and the divide
 tables). The reference's ``kcore_end_to_end`` keeps its snapshots under
-``$TMPDIR``, so it gets a fresh one.
+``$TMPDIR``, so it gets a fresh one. The LM serving example
+(``serve_lm.py``) draws its parameters from torch generators, so only its
+generated-shape line is held to the reference's (on an architecture without
+cross-attention: the reference's example passes no frames or vision
+embeddings, where the port's draws them).
 """
 import os
 import re
@@ -75,3 +79,35 @@ def test_example_never_falls_back_to_the_cpu(name):
     assert proc.returncode != 0
     assert "device 'cuda' requested" in proc.stderr
     assert "graph:" not in proc.stdout  # it stopped before any work
+
+
+def _serve_shape_line(out: str) -> str:
+    line = next(l for l in out.splitlines() if "-reduced: " in l)
+    return line.split(" tokens in ")[0]
+
+
+def test_serve_lm_example_prints_the_reference_shape_line(tmp_path):
+    args = ["--arch", "mamba2-130m", "--batch", "2", "--new-tokens", "6"]
+    port = subprocess.run(
+        [sys.executable, os.path.join(REPO, "examples", "torch", "serve_lm.py"), *args,
+         "--device", "cpu"], capture_output=True, text=True, env=_env(), cwd=tmp_path,
+        timeout=300)
+    ref = subprocess.run(
+        [sys.executable, os.path.join(REPO, "examples", "serve_lm.py"), *args],
+        capture_output=True, text=True, env=_env(JAX_PLATFORMS="cpu"), cwd=tmp_path,
+        timeout=300)
+    assert port.returncode == 0, port.stderr[-4000:]
+    assert ref.returncode == 0, ref.stderr[-4000:]
+    assert (_serve_shape_line(port.stdout) == _serve_shape_line(ref.stdout)
+            == "mamba2-130m-reduced: 2x6")
+
+
+def test_serve_lm_example_never_falls_back_to_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the check is for a host without one")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "examples", "torch", "serve_lm.py")],
+        capture_output=True, text=True, env=_env(), cwd=REPO, timeout=120)
+    assert proc.returncode != 0
+    assert "device 'cuda' requested" in proc.stderr
+    assert "-reduced:" not in proc.stdout
