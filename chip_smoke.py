@@ -153,7 +153,30 @@ and fails (non-zero exit, no result line) without them. Phases:
     a one-ulp change of the parameters where larger, and 8 greedy tokens
     equal wherever the CPU's top-two margin exceeds 1e-3. (d) ``python -m
     repro_torch.launch.serve --arch qwen3-8b`` as a child process.
-14. The kernel table as one JSON line, then the result line.
+14. The LM training path (``repro_torch.optim``, ``repro_torch.data``,
+    remat, ``runtime/train_loop.py``, ``launch/steps.py``,
+    ``launch/train.py``), with the k-core kernels' counters zeroed just
+    before and read just after (they must stay 0: no Pallas counterpart).
+    (a) granite-3-2b at its published widths and depth (2.53 B f32
+    parameters drawn on the card from seed 0), bf16 activations, AdamW with
+    warmup-cosine, clip 1.0 and full remat through ``step_fn_for("train")``,
+    ``SyntheticTokens`` at batch 4 x 1,024, 6 steps: each step's time, loss
+    and grad norm (all finite), the median of steps 3-6, tokens/s,
+    ``max_memory_allocated`` and the bound (8 N tokens at 989 TFLOP/s plus
+    AdamW's bytes at 3.35 TB/s); four more steps with deterministic mode
+    off, on, on, off; one step under ``torch.profiler`` (kernels and host
+    ops); the same batch's gradients twice with deterministic mode off and
+    on (on: bit-identical); a forward alone and the optimizer alone. (b)
+    The card against the CPU from the same parameters, with the CPU tests'
+    schedule and data, 5 steps: granite-3-2b's smoke config with AdamW and
+    grok-1-314b's with Adafactor (bf16 parameters); losses within rtol 1e-4
+    and parameters by ``models/parity.py::train_param_agreement``. (c) On
+    the card, granite smoke: a crash at step 8 after a step-5 checkpoint,
+    resumed to step 12, bit-identical to an uninterrupted run. (d) ``python
+    -m repro_torch.launch.train --arch mamba2-130m --steps 20 --batch 4
+    --seq 512`` (published widths) and ``examples/torch/train_lm.py``
+    (which must print that the loss decreased) as child processes.
+15. The kernel table as one JSON line, then the result line.
 
 Nothing here imports JAX or the JAX package (``src/repro``).
 """
@@ -859,6 +882,7 @@ def main() -> int:
         phase_part_parallel(g, oracle, seq, seq_walls, small, small_oracle, npz_path, work)
         phase_dryrun(bg)
         phase_lm()
+        phase_train(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -867,7 +891,7 @@ def main() -> int:
     if bad:
         raise AssertionError(f"JAX or the JAX package was imported: {bad}")
 
-    # ---------------- phase 14: result lines ---------------- #
+    # ---------------- phase 15: result lines ---------------- #
     kernels = [
         {"name": "fused_sweep", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused.cu",
@@ -1347,10 +1371,11 @@ def _max_excess(got, want, atol, rtol):
     return float(((got - want).abs() - (atol + rtol * want.abs())).max())
 
 
-def _profile(torch, fn, n: int = 5) -> str:
+def _profile(torch, fn, n: int = 5, ops: int = 0) -> str:
     """``fn()`` under ``torch.profiler``: its wall time, the device's busy
     time (the sum of its kernels' times), their count, the idle share, and
-    the ``n`` costliest kernels. (A CUDA-event bracket with the stream held
+    the ``n`` costliest kernels; with ``ops``, also the ``ops`` host ops
+    (``aten::*``) whose own kernels took longest. (A CUDA-event bracket with the stream held
     by a sleep kernel, as the k-core phases time, does not work here: a
     step's few thousand launches overflow the launch queue, and the host
     blocks behind the held stream.)"""
@@ -1368,9 +1393,16 @@ def _profile(torch, fn, n: int = 5) -> str:
     if not rows:
         return f"wall {wall_ms:.3f} ms under the profiler, which saw no device time"
     busy_ms = sum(r[0] for r in rows) / 1e3
-    return (f"wall {wall_ms:.3f} ms under the profiler, device busy {busy_ms:.3f} ms over "
-            f"{sum(r[1] for r in rows):,} kernels (idle {1 - busy_ms / wall_ms:.1%}); costliest: "
-            + "; ".join(f"{key[:56]} x{cnt} {t / 1e3:.3f} ms" for t, cnt, key in rows[:n]))
+    out = (f"wall {wall_ms:.3f} ms under the profiler, device busy {busy_ms:.3f} ms over "
+           f"{sum(r[1] for r in rows):,} kernels (idle {1 - busy_ms / wall_ms:.1%}); costliest: "
+           + "; ".join(f"{key[:56]} x{cnt} {t / 1e3:.3f} ms" for t, cnt, key in rows[:n]))
+    if ops:
+        host = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                       if not str(e.device_type).endswith("CUDA")
+                       and e.self_device_time_total > 0), reverse=True)
+        out += "; by host op: " + "; ".join(f"{key} x{cnt} {t / 1e3:.3f} ms"
+                                            for t, cnt, key in host[:ops])
+    return out
 
 
 def phase_lm() -> None:
@@ -1550,6 +1582,264 @@ def phase_lm() -> None:
     log(f"LM phase: {time.perf_counter() - t_phase:.1f}s; k-core kernel launches on the LM "
         f"path {launched} (its products and attention are torch matmuls: no Pallas "
         f"counterpart)")
+
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6  # phase 14(a): granite-3-2b training
+TRAIN_LR = 3e-4
+# Phase 14(b)-(c): the CPU tests' schedule and data (tests/test_torch_train_loop.py).
+SMOKE_SCHED = dict(lr=1e-3, warmup=2, total=5)
+SMOKE_SEQ, SMOKE_BATCH, SMOKE_STEPS = 16, 2, 5
+
+
+def _timed_ms(torch, fn) -> float:
+    """Host milliseconds of ``fn()`` between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_train(work: Path) -> None:
+    """Phase 14: the LM training path (``optim/``, ``data/``, remat in
+    ``models/blocks.py``, ``runtime/train_loop.py``, ``launch/steps.py``,
+    ``launch/train.py``, ``examples/torch/train_lm.py``)."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels.counts import partial_counts_op
+    from repro_torch.kernels.fused import fused_sweep_op
+    from repro_torch.kernels.hindex import hindex_op
+    from repro_torch.launch.serve import card_name
+    from repro_torch.launch.steps import step_fn_for
+    from repro_torch.models.model import CausalLM, loss_fn
+    from repro_torch.models.module import count_params, init_params
+    from repro_torch.models.parity import TRAIN_LOSS_RTOL, train_param_agreement
+    from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm, \
+        get_optimizer, warmup_cosine
+    from repro_torch.runtime import FailureInjector, InjectedFailure, TrainLoop, make_train_step
+    from repro_torch.runtime.train_loop import device_batch
+
+    t_phase = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    card = card_name(dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    counters = (fused_sweep_op, hindex_op, partial_counts_op)
+    for op in counters:
+        op.launches = 0
+
+    # (a) granite-3-2b at its published widths and depth: AdamW with
+    # warmup-cosine, clip 1.0, full remat, through step_fn_for("train").
+    cfg = get_config("granite-3-2b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init_params(CausalLM(cfg, device=dev), 0)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = count_params(model)
+    train_fn, _ = step_fn_for(cfg, "train", lr=TRAIN_LR)
+    train_cfg = dataclasses.replace(cfg, remat="full")
+    optimizer = get_optimizer(train_cfg, lr=TRAIN_LR)
+    opt_state = optimizer.init(dict(model.named_parameters()))
+    data = SyntheticTokens(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    step_t = torch.zeros((), dtype=torch.long, device=dev)
+    state = {"opt": opt_state}
+
+    def run_step(fn, i):
+        batch = device_batch(data.batch_at(i), dev)
+        out = {}
+
+        def go():
+            _, state["opt"], out["m"] = fn(model, state["opt"], step_t, batch)
+
+        ms = _timed_ms(torch, go)
+        step_t.add_(1)
+        return ms, float(out["m"]["loss"]), float(out["m"]["grad_norm"])
+
+    runs = [run_step(train_fn, i) for i in range(TRAIN_STEPS)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    times, losses, norms = zip(*runs)
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"granite-3-2b training: non-finite loss or grad norm {runs}")
+    med_ms = statistics.median(times[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    state_bytes = sum(p.numel() * 4 for p in model.parameters()) * 4  # params, grads, m, v
+    flop_ms = 8 * n_params * tokens / 989e12 * 1e3
+    opt_ms = 7 * 4 * n_params / 3.35e12 * 1e3  # AdamW reads p, g, m, v, writes p, m, v (f32)
+    log(f"LM train granite-3-2b (published widths, {cfg.n_layers} layers, {n_params:,} params, "
+        f"drawn on the card from seed 0 in {init_s:.2f}s; f32 params, grads and AdamW state "
+        f"{state_bytes:,} B): batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, bf16 activations, full "
+        f"remat, AdamW lr {TRAIN_LR} warmup-cosine, clip 1.0, deterministic; {card}")
+    log(f"  steps 1-{TRAIN_STEPS} ms " + ", ".join(f"{t:.1f}" for t in times)
+        + f"; loss " + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; grad norm " + ", ".join(f"{x:.4f}" for x in norms))
+    log(f"  median of steps 3-{TRAIN_STEPS} {med_ms:.3f} ms, {tokens / med_ms * 1e3:,.0f} "
+        f"tokens/s; bound {flop_ms + opt_ms:.3f} ms (8 N tokens = "
+        f"{8 * n_params * tokens / 1e12:.1f} TFLOP at 989 TFLOP/s {flop_ms:.3f} ms + AdamW "
+        f"{7 * 4 * n_params / 1e9:.1f} GB at 3.35 TB/s {opt_ms:.3f} ms); peak {peak:,} B "
+        f"allocated; every loss and grad norm finite")
+
+    # What deterministic mode costs: steps with it off and on, in turns.
+    free_fn = make_train_step(train_cfg, optimizer, deterministic=False)
+    turns = {"off": [], "on": []}
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        turns[mode].append(run_step(free_fn if mode == "off" else train_fn,
+                                    TRAIN_STEPS + i)[0])
+    log(f"  deterministic mode off/on/on/off: {turns['off'][0]:.1f}, {turns['on'][0]:.1f}, "
+        f"{turns['on'][1]:.1f}, {turns['off'][1]:.1f} ms: it costs "
+        f"{statistics.mean(turns['on']) - statistics.mean(turns['off']):+.1f} ms a step")
+
+    # Where the time goes: one profiled step, a forward alone (what full remat
+    # computes again in backward), and the optimizer alone on fake gradients.
+    log(f"  one train step: "
+        f"{_profile(torch, lambda: run_step(train_fn, TRAIN_STEPS + 4), n=6, ops=12)}")
+
+    # Trap 2 at full width: the same batch's gradients twice, with
+    # deterministic mode off and on (an optimizer that keeps the first
+    # gradients, compares the second with them and applies nothing).
+    def grad_repeat(deterministic):
+        kept, diff = {}, []
+
+        def update(grads, st, params, step):
+            if not kept:
+                kept.update({k: g.clone() for k, g in grads.items()})
+            else:
+                diff.append(max(float((g - kept[k]).abs().max()) for k, g in grads.items()))
+            return {k: g.zero_() for k, g in grads.items()}, st
+
+        probe = make_train_step(train_cfg, Optimizer(init=lambda p: {}, update=update),
+                                max_grad_norm=float("inf"), deterministic=deterministic)
+        batch = device_batch(data.batch_at(0), dev)
+        for _ in range(2):
+            probe(model, {}, step_t, batch)
+        del kept
+        return diff[0]
+
+    repeat = {mode: grad_repeat(mode == "on") for mode in ("off", "on")}
+    if repeat["on"] != 0.0:
+        raise AssertionError(f"granite-3-2b: deterministic gradients differ by {repeat['on']}")
+    log(f"  the same batch's gradients twice at full width: max abs diff {repeat['off']:.3e} "
+        f"with deterministic mode off, {repeat['on']:.3e} with it on")
+    batch = device_batch(data.batch_at(0), dev)
+    with torch.no_grad():
+        fwd_ms = min(_timed_ms(torch, lambda: loss_fn(model, batch)) for _ in range(3))
+    with torch.no_grad():
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        grads = {k: torch.randn_like(p).mul_(1e-3) for k, p in params.items()}
+
+        def opt_pass():
+            g, _ = clip_by_global_norm(grads, 1.0)
+            upd, state["opt"] = optimizer.update(g, state["opt"], params, step_t)
+            apply_updates(params, upd)
+
+        opt_pass_ms = _timed_ms(torch, opt_pass)
+    del grads, params
+    log(f"  forward alone (no grad) {fwd_ms:.3f} ms, computed twice a step under full remat; "
+        f"clip + AdamW + apply alone {opt_pass_ms:.3f} ms (bound {opt_ms:.3f} ms); the rest of "
+        f"the step (backward) {med_ms - 2 * fwd_ms - opt_pass_ms:.3f} ms")
+    del model, state, optimizer, opt_state, batch
+    torch.cuda.empty_cache()
+
+    # (b) card against CPU: the same carried parameters, schedule and data as
+    # the CPU tests, five steps each; granite with AdamW, grok-1 with
+    # Adafactor on its stacked leaves (bf16 parameters).
+    lr_fn = warmup_cosine(SMOKE_SCHED["lr"], SMOKE_SCHED["warmup"], SMOKE_SCHED["total"])
+
+    def smoke_loop(c, base, device, **kw):
+        m = CausalLM(c, device=device)
+        m.load_state_dict(base.state_dict())
+        return TrainLoop(cfg=c, model=m, optimizer=get_optimizer(c, **SMOKE_SCHED),
+                         data=SyntheticTokens(c.vocab_size, SMOKE_SEQ, SMOKE_BATCH, seed=1), **kw)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for arch in ("granite-3-2b", "grok-1-314b"):
+            c = get_smoke_config(arch)
+            base = init_params(CausalLM(c, device=cpu), 0)
+            res = []
+            for device in (cpu, dev):
+                loop = smoke_loop(c, base, device)
+                hist = loop.run(SMOKE_STEPS, log_every=1)
+                res.append((hist["loss"], {k: v.cpu() for k, v in loop.model.state_dict().items()}))
+            (l_cpu, p_cpu), (l_dev, p_dev) = res
+            rel = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
+            if rel > TRAIN_LOSS_RTOL:
+                raise AssertionError(f"{arch} training: card losses {l_dev} against the CPU's "
+                                     f"{l_cpu}: rel diff {rel:.3e} > {TRAIN_LOSS_RTOL}")
+            note = train_param_agreement(p_dev, p_cpu, lr_fn, SMOKE_STEPS)
+            log(f"  card vs cpu, {arch} (smoke) with {c.optimizer}, {SMOKE_STEPS} steps, f32 "
+                f"activations: loss max rel diff {rel:.3e} (rtol {TRAIN_LOSS_RTOL}); parameters "
+                f"{note}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # (c) resume on the card, granite smoke: a crash at step 8 after the
+    # step-5 checkpoint, resumed to step 12, against an uninterrupted run.
+    c = get_smoke_config("granite-3-2b")
+    base = init_params(CausalLM(c, device=cpu), 0)
+    whole = smoke_loop(c, base, dev, ckpt_dir=str(work / "train_a"), ckpt_every=5,
+                       ckpt_blocking=True)
+    whole.run(12, log_every=1)
+    crashed = smoke_loop(c, base, dev, ckpt_dir=str(work / "train_b"), ckpt_every=5,
+                         ckpt_blocking=True, failure_injector=FailureInjector(fail_at={8}))
+    try:
+        crashed.run(12, log_every=1)
+        raise AssertionError("train resume: the injected failure never fired")
+    except InjectedFailure:
+        pass
+    resumed = smoke_loop(c, init_params(CausalLM(c, device=cpu), 1), dev,
+                         ckpt_dir=str(work / "train_b"), ckpt_every=5, ckpt_blocking=True)
+    if not resumed.try_resume() or resumed.step != 5:
+        raise AssertionError(f"train resume: resumed at step {resumed.step}, not 5")
+    resumed.run(12 - resumed.step, log_every=1)
+    differ = [k for k, v in whole.model.state_dict().items()
+              if not torch.equal(v, resumed.model.state_dict()[k])]
+    differ += [f"opt {part} {k}" for part in ("m", "v") for k in whole.opt_state[part]
+               if not torch.equal(whole.opt_state[part][k], resumed.opt_state[part][k])]
+    if differ:
+        raise AssertionError(f"train resume on the card is not bit-identical: {differ[:8]}")
+    log(f"  resume on the card (granite smoke): crashed at step 8, resumed from the step-5 "
+        f"checkpoint to step 12: parameters and AdamW state bit-identical to an uninterrupted "
+        f"run")
+
+    # (d) the launcher and the example, as a user runs them, on the card.
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    cmds = {"launch.train": [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                             "mamba2-130m", "--steps", "20", "--batch", "4", "--seq", "512"],
+            "train_lm.py": [sys.executable, str(ROOT / "examples" / "torch" / "train_lm.py")]}
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True, env=env) for name, cmd in cmds.items()}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(timeout=600)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for name, (out, err) in outs.items():
+        for line in out.splitlines():
+            log(f"  {name}: {line}")
+        if procs[name].returncode != 0:
+            log(err[-4000:])
+            raise AssertionError(f"{name}: exit {procs[name].returncode}")
+    if "loss decreased" not in outs["train_lm.py"][0]:
+        raise AssertionError("examples/torch/train_lm.py: the loss did not decrease")
+    log(f"  launch.train --arch mamba2-130m (published widths) and the example beside it: "
+        f"{time.perf_counter() - t0:.1f}s in their own processes")
+    launched = {op.__name__: op.launches for op in counters}
+    if any(launched.values()):
+        raise AssertionError(f"the LM training path launched a k-core kernel: {launched}")
+    log(f"LM training phase: {time.perf_counter() - t_phase:.1f}s; k-core kernel launches on "
+        f"the training path {launched} (its products, attention and losses are torch "
+        f"matmuls and autograd: no Pallas counterpart)")
 
 
 def _serve_batches(g0, seed):

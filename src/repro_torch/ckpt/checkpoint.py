@@ -12,8 +12,10 @@ needed); dicts flatten in sorted-key order and ``None`` holds no leaf, as
 a JAX pytree does. Leaf file names are the ones the JAX package derives
 from its key paths: ``coreness__0.npy`` for ``{"coreness": ...}``,
 ``0__0.npy`` for a list's first element, ``a_b__0.npy`` for
-``{"a": {"b": ...}}``, ``leaf__0.npy`` for a bare array. Only numpy
-dtypes are handled.
+``{"a": {"b": ...}}``, ``leaf__0.npy`` for a bare array. Leaves are numpy
+arrays or CPU torch tensors; a bf16 tensor (numpy has none without
+``ml_dtypes``) is written as its 16-bit pattern under the dtype name
+``bfloat16``, as the JAX package writes one, and restores as a bf16 tensor.
 
 Integrity: :func:`save_pytree` stamps a CRC32 per leaf and
 :func:`restore_pytree` re-checks it; bit rot, truncation or an unreadable
@@ -39,6 +41,7 @@ import zlib
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -117,6 +120,24 @@ def _leaf_files(tree):
     return out, [leaf for _path, leaf in pairs]
 
 
+def _saved_array(leaf) -> Tuple[np.ndarray, str]:
+    """The array written for a leaf, and the dtype name in the manifest."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        leaf = t.numpy()
+    arr = np.asarray(leaf)
+    return arr, arr.dtype.name
+
+
+def _loaded_leaf(arr: np.ndarray, dtype_name: str):
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    want = np.dtype(dtype_name)  # numpy dtypes only (TypeError otherwise)
+    return arr if arr.dtype == want else arr.view(want)
+
+
 def _leaf_crc32(arr: np.ndarray) -> int:
     """CRC32 over the leaf's raw bytes, as serialized."""
     return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
@@ -132,8 +153,8 @@ def save_pytree(path: str, tree, step: int, extra: Optional[dict] = None) -> str
     dtypes = []
     crcs = []
     for fname, leaf in zip(files, leaves):
-        arr = np.asarray(leaf)
-        dtypes.append(arr.dtype.name)
+        arr, dtype_name = _saved_array(leaf)
+        dtypes.append(dtype_name)
         crcs.append(_leaf_crc32(arr))
         np.save(os.path.join(tmp, fname), arr)
     manifest = {
@@ -200,10 +221,7 @@ def restore_pytree(path: str, like, step: Optional[int] = None):
             raise CheckpointCorruptError(
                 f"CRC mismatch for leaf {fname} in {d} (bit rot or torn write)"
             )
-        want = np.dtype(dtype_name)  # numpy dtypes only (TypeError otherwise)
-        if arr.dtype != want:
-            arr = arr.view(want)
-        arrays.append(arr)
+        arrays.append(_loaded_leaf(arr, dtype_name))
     return _unflatten(like, iter(arrays)), step, manifest["extra"]
 
 
@@ -255,6 +273,8 @@ def _host_copy(tree):
         return type(tree)(_host_copy(v) for v in tree)
     if tree is None:
         return None
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
     return np.array(tree, copy=True)
 
 

@@ -8,6 +8,9 @@ The port keeps one :class:`Block` per layer in an ``nn.ModuleList``, in
 layer order: the reference's ``scan[g]["slot{i}"]`` is layer
 ``g * period + i``, and the tail follows.
 
+Training remats as the reference does (``cfg.remat``): each group of one
+pattern period is checkpointed, the tail is not (:func:`stack_apply`).
+
 Caches are a list with one dict per layer: ``"attn"`` (the KV ring buffer),
 ``"ssm"`` (state and conv tail) and ``"cross_kv"`` (the cross-attention
 source's keys and values, computed once at prefill).
@@ -16,10 +19,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
@@ -214,11 +223,54 @@ def build_layers(cfg, n_layers: Optional[int] = None, causal: bool = True,
                          for kind in layer_kinds(cfg, n_layers, causal, allow_cross))
 
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the outputs of products with no batch
+    dimension (``x @ W`` reaches ``aten.mm``), recompute the rest (the
+    attention's and the experts' batched products, norms, activations)."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """The reference's ``_maybe_remat``: ``full`` recomputes the whole group
+    in backward, ``dots`` mirrors ``checkpoint_dots_with_no_batch_dims``."""
+    if cfg.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if cfg.remat == "dots":
+        return lambda *a: checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=partial(create_selective_checkpoint_contexts, _save_weight_products))
+    return fn
+
+
 def stack_apply(layers, x, cfg, ctx, collect_cache: bool = False):
-    """Run the whole stack. Returns (x, aux_total, caches or None)."""
+    """Run the whole stack. Returns (x, aux_total, caches or None).
+
+    With ``cfg.remat`` other than ``none`` and autograd recording, each
+    group of one pattern period (the reference's scan body) runs under
+    activation checkpointing; the unrolled tail does not, as in the
+    reference. Serving (``collect_cache``) never remats."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
-    for block in layers:
+    period = pattern_period(cfg)
+    n_groups = len(layers) // period
+    if cfg.remat != "none" and not collect_cache and torch.is_grad_enabled() and n_groups:
+        def group_fn(x, g):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for block in layers[g * period:(g + 1) * period]:
+                x, a, _ = block(x, cfg, ctx)
+                aux = aux + a
+            return x, aux
+
+        run = _remat(group_fn, cfg)
+        for g in range(n_groups):
+            x, a = run(x, g)
+            aux = aux + a
+        rest = layers[n_groups * period:]
+    else:
+        rest = layers
+    for block in rest:
         x, a, c = block(x, cfg, ctx, collect_cache)
         aux = aux + a
         caches.append(c)

@@ -9,6 +9,7 @@ parameters keep ``cfg.param_dtype`` and each weight is cast to
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional
 
 import torch
@@ -109,8 +110,20 @@ class CausalLM(nn.Module):
         return logits_head(self.embed, x, cfg), new_caches
 
 
+@contextlib.contextmanager
+def using_cfg(model: CausalLM, cfg):
+    """Run ``model`` under ``cfg`` (its remat policy, its activation dtype)
+    inside the block, then give it back its own: the step functions take the
+    configuration as the reference's pure functions do."""
+    own, model.cfg = model.cfg, cfg
+    try:
+        yield model
+    finally:
+        model.cfg = own
+
+
 # --------------------------------------------------------------------- #
-# Loss (kept beside the model as in the reference; the port does not train)
+# Loss (the training objective: runtime/train_loop.py differentiates it)
 # --------------------------------------------------------------------- #
 def ce_loss(logits, labels, cfg, z_loss: float = 1e-4):
     """Cross-entropy over the padded vocab (pad ids masked out)."""

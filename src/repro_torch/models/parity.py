@@ -12,7 +12,10 @@ tests) and where the card is compared with the CPU (``chip_smoke.py``):
   decode-parity tolerance (``tests/test_decode_long.py``);
 * greedy tokens equal, except from a step where the reference's top-two
   margin is at most 1e-3, a near tie that round-off may break either way
-  (:func:`greedy_agreement`).
+  (:func:`greedy_agreement`);
+* training runs: every step's loss within rtol 1e-4, and the parameters
+  after ``n`` steps by :func:`train_param_agreement`, a tolerance tied to
+  the learning rate.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ import torch
 F32_TOL = dict(atol=1e-4, rtol=1e-4)
 DECODE_TOL = dict(atol=2e-3, rtol=1e-3)
 GREEDY_MARGIN = 1e-3
+TRAIN_LOSS_RTOL = 1e-4
+BF16_ROUNDING = 2.0 ** -7  # one rounding of a bf16 value, relative
 
 
 def _np(x) -> np.ndarray:
@@ -91,3 +96,50 @@ def greedy_agreement(got, want, logits_at: Callable[[int, int], object], vocab_s
                                  f"{int(want[row, t])} with a top-two margin of {gap:.3g}")
         notes.append(f"row {row} differs from step {t} (margin {gap:.2e})")
     return "; ".join(notes) or "equal"
+
+
+def _is_bf16(x) -> bool:
+    dtype = getattr(x, "dtype", None)  # a tensor, or a numpy array of ml_dtypes' bfloat16
+    return dtype == torch.bfloat16 or getattr(dtype, "name", "") == "bfloat16"
+
+
+def lr_budget(lr_fn, n_steps: int) -> float:
+    """``2 * sum_t lr_t`` over the first ``n_steps`` steps of a schedule."""
+    return 2 * sum(float(lr_fn(torch.tensor(s + 1.0))) for s in range(n_steps))
+
+
+def train_param_agreement(got: dict, want: dict, lr_fn, n_steps: int) -> str:
+    """Parameters after ``n_steps`` of training (``got``, dicts of arrays
+    or tensors by name) against the reference run's ``want``.
+
+    The gradients of the two runs agree to f32 round-off, so each update
+    agrees to round-off too, except for an element whose gradient is itself
+    at round-off level: there the optimizer's normalized direction (AdamW's
+    ``mhat / sqrt(vhat)``, Adafactor's ``g / sqrt(v)``: +-1 at the first
+    step, O(1) after) may point either way, and the two updates differ by up
+    to ``2 * lr_t``. So every element must lie within :func:`lr_budget`, a
+    bf16 parameter also within one bf16 rounding of its value (two sums a
+    round-off apart may round to neighbouring bf16 values); and all but
+    0.1% of the elements within a thousandth of that budget (beyond the
+    bf16 rounding): sign flips are rare, round-off is not. Raises
+    ``AssertionError``; returns a note of the largest difference."""
+    budget = lr_budget(lr_fn, n_steps)
+    worst, n_out, n_all = 0.0, 0, 0
+    for name, w in want.items():
+        g = got[name]
+        rtol = BF16_ROUNDING if _is_bf16(g) or _is_bf16(w) else 0.0
+        a, b = _np(g).astype(np.float64), _np(w).astype(np.float64)
+        if a.shape != b.shape:
+            raise AssertionError(f"{name}: shape {a.shape} against {b.shape}")
+        excess = np.abs(a - b) - rtol * np.abs(b)
+        if excess.size and excess.max() > budget:
+            raise AssertionError(f"{name}: differs by {np.abs(a - b).max():.3e}, beyond the lr "
+                                 f"budget {budget:.3e} (rtol {rtol:g})")
+        worst = max(worst, float(np.abs(a - b).max(initial=0.0)))
+        n_out += int((excess > budget * 1e-3).sum())
+        n_all += a.size
+    if n_out > 1e-3 * n_all:
+        raise AssertionError(f"{n_out} of {n_all} elements differ by more than "
+                             f"{budget * 1e-3:.3e} (a thousandth of the lr budget)")
+    return (f"max abs diff {worst:.3e} (lr budget {budget:.3e}); {n_out} of {n_all:,} elements "
+            f"beyond a thousandth of it")

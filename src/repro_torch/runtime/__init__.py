@@ -1,5 +1,6 @@
-"""Runtime utilities of the port: failure injection and retries, and the
-greedy serving loop of the LM harness."""
+"""Runtime of the port: the training loop, failure injection and retries,
+and the greedy serving loop of the LM harness."""
+from repro_torch.runtime.train_loop import TrainLoop, make_train_step
 from repro_torch.runtime.fault import (
     FAULT_SITES,
     FailureInjector,
@@ -11,6 +12,8 @@ from repro_torch.runtime.fault import (
 from repro_torch.runtime.serve_loop import greedy_generate
 
 __all__ = [
+    "TrainLoop",
+    "make_train_step",
     "FailureInjector",
     "FaultPlan",
     "FaultSpec",
