@@ -176,7 +176,16 @@ and fails (non-zero exit, no result line) without them. Phases:
     -m repro_torch.launch.train --arch mamba2-130m --steps 20 --batch 4
     --seq 512`` (published widths) and ``examples/torch/train_lm.py``
     (which must print that the loss decreased) as child processes.
-15. The kernel table as one JSON line, then the result line.
+15. The kernel table as one JSON line, then the result line (printed
+    last, after phase 16).
+16. The LM dry-run against the card (``launch/dryrun.py``'s tally, one
+    rank, no mesh): phase 14(a)'s granite-3-2b train step and phase 13(a)'s
+    qwen3-8b prefill and decode step traced on meta tensors; for each, the
+    traced peak bytes against the card's ``max_memory_allocated``, the
+    traced FLOPs against ``flops_model.cost(..., n_chips=1)`` (within rel
+    0.15, asserted) and the FLOP roofline's time against the card's time;
+    the traced peak must hold the resident parameters (train: with
+    gradients and AdamW state).
 
 Nothing here imports JAX or the JAX package (``src/repro``).
 """
@@ -881,8 +890,9 @@ def main() -> int:
         phase_serve(g, npz_path, work)
         phase_part_parallel(g, oracle, seq, seq_walls, small, small_oracle, npz_path, work)
         phase_dryrun(bg)
-        phase_lm()
-        phase_train(work)
+        serve_measured = phase_lm()
+        train_measured = phase_train(work)
+        phase_lm_dryrun(serve_measured, train_measured)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1405,9 +1415,11 @@ def _profile(torch, fn, n: int = 5, ops: int = 0) -> str:
     return out
 
 
-def phase_lm() -> None:
+def phase_lm() -> dict:
     """Phase 13: the LM serving path (``repro_torch.models``,
-    ``runtime/serve_loop.py``, ``launch/serve.py``)."""
+    ``runtime/serve_loop.py``, ``launch/serve.py``). Returns phase 13(a)'s
+    measurements for phase 16: the prefill and median decode ms and the
+    peak allocated bytes of the generate call."""
     import dataclasses
 
     import torch
@@ -1452,6 +1464,8 @@ def phase_lm() -> None:
         raise AssertionError(f"qwen3-8b: tokens {tuple(tokens.shape)} outside [0, "
                              f"{cfg.vocab_size})")
     dec_ms = res["decode_ms_median"]
+    measured = {"prefill_ms": res["prefill_ms"], "decode_ms": dec_ms,
+                "peak_bytes": res["peak_bytes"]}
     # Least times, from the card's published peaks (3.35 TB/s, 989 TFLOP/s
     # bf16). A decode step reads every f32 weight but the embedding table
     # (gathered, 4 rows), writes its bf16 cast and reads that cast again.
@@ -1582,6 +1596,7 @@ def phase_lm() -> None:
     log(f"LM phase: {time.perf_counter() - t_phase:.1f}s; k-core kernel launches on the LM "
         f"path {launched} (its products and attention are torch matmuls: no Pallas "
         f"counterpart)")
+    return measured
 
 
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 6  # phase 14(a): granite-3-2b training
@@ -1600,10 +1615,12 @@ def _timed_ms(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def phase_train(work: Path) -> None:
+def phase_train(work: Path) -> dict:
     """Phase 14: the LM training path (``optim/``, ``data/``, remat in
     ``models/blocks.py``, ``runtime/train_loop.py``, ``launch/steps.py``,
-    ``launch/train.py``, ``examples/torch/train_lm.py``)."""
+    ``launch/train.py``, ``examples/torch/train_lm.py``). Returns phase
+    14(a)'s measurements for phase 16: the median step ms and the peak
+    allocated bytes of its steps."""
     import dataclasses
     import math
 
@@ -1667,6 +1684,7 @@ def phase_train(work: Path) -> None:
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"granite-3-2b training: non-finite loss or grad norm {runs}")
     med_ms = statistics.median(times[2:])
+    measured = {"step_ms": med_ms, "peak_bytes": peak}
     tokens = TRAIN_BATCH * TRAIN_SEQ
     state_bytes = sum(p.numel() * 4 for p in model.parameters()) * 4  # params, grads, m, v
     flop_ms = 8 * n_params * tokens / 989e12 * 1e3
@@ -1840,6 +1858,111 @@ def phase_train(work: Path) -> None:
     log(f"LM training phase: {time.perf_counter() - t_phase:.1f}s; k-core kernel launches on "
         f"the training path {launched} (its products, attention and losses are torch "
         f"matmuls and autograd: no Pallas counterpart)")
+    return measured
+
+
+# Phase 16: the traced FLOPs of a step within this of the analytic model's,
+# the reference's tolerance (tests/test_roofline.py).
+LM_DRYRUN_FLOPS_RTOL = 0.15
+
+
+def phase_lm_dryrun(serve: dict, train: dict) -> None:
+    """Phase 16: the LM dry-run against the card. The three steps phases 13
+    and 14 ran on the card, traced once more on meta tensors (one rank, no
+    mesh) under the dry-run's tally: granite-3-2b's train step at 4 x 1,024
+    with full remat and AdamW, qwen3-8b's prefill at 4 x 512 (cache room
+    for 64 more tokens) and one decode step at batch 4 on its caches. For
+    each, the traced peak (arguments plus the call's own storages) against
+    the card's ``max_memory_allocated``, the traced FLOPs against
+    ``flops_model.cost(..., n_chips=1)`` (asserted within
+    ``LM_DRYRUN_FLOPS_RTOL``), and the FLOP roofline's time against the
+    card's time. The traced peak must hold at least the resident
+    parameters (and for the train step their gradients and AdamW state);
+    the ratio to the card's peak is printed, not asserted."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.serve import card_name
+    from repro_torch.launch.steps import step_fn_for
+    from repro_torch.models.model import CausalLM
+    from repro_torch.models.module import count_params
+    from repro_torch.optim import get_optimizer
+    from repro_torch.roofline import flops_model
+    from repro_torch.roofline.analysis import CollectiveStats, flop_roofline_terms
+    from repro_torch.roofline.tally import Tally
+
+    t_phase = time.perf_counter()
+    # The trace needs no card: without one (a check of the phase alone on a
+    # CPU host, with measurements passed in) the card line says so.
+    card = card_name(torch.device("cuda")) if torch.cuda.is_available() else "no card"
+    meta = torch.device("meta")
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    def report(label, cfg, shape, n_params, tally, arg_bytes, resident, measured_peak,
+               measured_ms):
+        want = flops_model.cost(cfg, shape, n_params, 1, remat=shape.kind == "train").flops_total
+        rel = abs(tally.flops - want) / want
+        rl = flop_roofline_terms(tally.flops, tally.hbm_bytes, CollectiveStats(), 1)
+        peak = arg_bytes + tally.peak_bytes
+        log(f"  {label}: traced peak {peak:,} B (arguments {arg_bytes:,} + the call's own "
+            f"{tally.peak_bytes:,}) against the card's max_memory_allocated {measured_peak:,} B "
+            f"(ratio {peak / measured_peak:.3f}); traced FLOPs {tally.flops:,} against the "
+            f"analytic {want:,.0f} (rel {rel:.4f}); roofline {max(rl.compute_s, rl.memory_s) * 1e3:.3f}"
+            f" ms ({rl.bottleneck}: compute {rl.compute_s * 1e3:.3f} ms, memory "
+            f"{rl.memory_s * 1e3:.3f} ms of {tally.hbm_bytes:,} B) against the card's "
+            f"{measured_ms:.3f} ms")
+        if rel > LM_DRYRUN_FLOPS_RTOL:
+            raise AssertionError(f"{label}: traced FLOPs {tally.flops:,} not within "
+                                 f"{LM_DRYRUN_FLOPS_RTOL} of the analytic {want:,.0f}")
+        if peak < resident:
+            raise AssertionError(f"{label}: traced peak {peak:,} B below the resident "
+                                 f"{resident:,} B")
+
+    log(f"LM dry-run against the card (one rank, meta tensors, the dry-run's tally); {card}")
+
+    # granite-3-2b's train step, as phase 14(a) ran it.
+    cfg = get_config("granite-3-2b")
+    model = CausalLM(cfg, device=meta)
+    n_params = count_params(model)
+    fn, _ = step_fn_for(cfg, "train", lr=TRAIN_LR)
+    params = dict(model.named_parameters())
+    opt_state = get_optimizer(dataclasses.replace(cfg, remat="full"), lr=TRAIN_LR).init(params)
+    batch = {k: torch.empty(TRAIN_BATCH, TRAIN_SEQ, dtype=torch.int32, device=meta)
+             for k in ("tokens", "labels")}
+    step_t = torch.zeros((), dtype=torch.long, device=meta)
+    args = list(params.values()) + [opt_state["m"][k] for k in params] + \
+        [opt_state["v"][k] for k in params] + list(batch.values())
+    with Tally() as tally:
+        fn(model, opt_state, step_t, batch)
+    p_bytes = nbytes(params.values())
+    report(f"granite-3-2b train step {TRAIN_BATCH} x {TRAIN_SEQ}", cfg,
+           ShapeConfig("smoke", "train", TRAIN_SEQ, TRAIN_BATCH), n_params, tally, nbytes(args),
+           p_bytes * 4, train["peak_bytes"], train["step_ms"])  # params, grads, m, v (f32)
+
+    # qwen3-8b's prefill and one decode step, as phase 13(a) ran them.
+    cfg = get_config("qwen3-8b")
+    model = CausalLM(cfg, device=meta)
+    n_params = count_params(model)
+    p_bytes = nbytes(model.parameters())
+    prompt = torch.empty(LM_BATCH, LM_PROMPT, dtype=torch.long, device=meta)
+    with torch.inference_mode(), Tally() as tally:
+        _logits, caches = model.prefill(prompt, max_len=LM_PROMPT + LM_NEW)
+    report(f"qwen3-8b prefill {LM_BATCH} x {LM_PROMPT}", cfg,
+           ShapeConfig("smoke", "prefill", LM_PROMPT, LM_BATCH), n_params, tally,
+           p_bytes + nbytes([prompt]), p_bytes, serve["peak_bytes"], serve["prefill_ms"])
+    cache_bytes = nbytes(t for c in caches for d in c.values() for t in d.values())
+    token = torch.empty(LM_BATCH, 1, dtype=torch.long, device=meta)
+    position = torch.empty(LM_BATCH, dtype=torch.long, device=meta)
+    with torch.inference_mode(), Tally() as tally:
+        model.decode_step(caches, token, position)
+    report(f"qwen3-8b decode step, batch {LM_BATCH}, {LM_PROMPT + LM_NEW} cache slots", cfg,
+           ShapeConfig("smoke", "decode", LM_PROMPT + LM_NEW, LM_BATCH), n_params, tally,
+           p_bytes + cache_bytes, p_bytes + cache_bytes, serve["peak_bytes"], serve["decode_ms"])
+    log(f"LM dry-run phase: {time.perf_counter() - t_phase:.1f}s")
 
 
 def _serve_batches(g0, seed):

@@ -29,6 +29,10 @@ _ARCH_MODULES: Dict[str, str] = {
 
 ARCHS: List[str] = list(_ARCH_MODULES)
 
+# long_500k needs sub-quadratic attention; the dry-run runs it only for the
+# SSM, hybrid and sliding-window archs.
+LONG_CONTEXT_ARCHS = {"mamba2-130m", "jamba-1.5-large-398b", "gemma3-27b"}
+
 
 def get_config(name: str) -> ModelConfig:
     if name not in _ARCH_MODULES:
@@ -42,8 +46,26 @@ def get_smoke_config(name: str) -> ModelConfig:
     return importlib.import_module(_ARCH_MODULES[name]).smoke_config()
 
 
+def cells(include_skipped: bool = False):
+    """All (arch, shape) dry-run cells; skipped long_500k cells excluded by
+    default."""
+    out = []
+    for arch in ARCHS:
+        for shape in SHAPES.values():
+            if (
+                shape.name == "long_500k"
+                and arch not in LONG_CONTEXT_ARCHS
+                and not include_skipped
+            ):
+                continue
+            out.append((arch, shape.name))
+    return out
+
+
 __all__ = [
     "ARCHS",
+    "LONG_CONTEXT_ARCHS",
+    "cells",
     "SHAPES",
     "EncoderConfig",
     "ModelConfig",

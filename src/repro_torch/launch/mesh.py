@@ -13,6 +13,11 @@ over a block of those ranks (a part-parallel slice).
 dry-run prices, laid over a process group of the ``"fake"`` backend that
 :func:`fake_process_group` opens (512 ranks in one process, no device and
 no network; its collectives run on meta tensors and move nothing).
+
+:func:`make_production_mesh` and :func:`make_device_mesh` are the LM
+dry-run's meshes: a ``DeviceMesh`` with named dims over the same group,
+on which the sharding policy lays its DTensor placements
+(:mod:`repro_torch.sharding.policy`).
 """
 from __future__ import annotations
 
@@ -176,3 +181,37 @@ def fake_process_group(world_size: int):
         yield
     finally:
         dist.destroy_process_group()
+
+
+def make_device_mesh(shape: Sequence[int], axis_names: Sequence[str] = ("data", "model")):
+    """A ``DeviceMesh`` of ``shape`` with dims named ``axis_names`` over the
+    first ranks of the initialized process group, rank ``r`` at the
+    row-major coordinate ``r`` (the tests' ``(4, 2)``; a fake group's meta
+    tensors run on a ``"cpu"`` mesh). The group needs at least the mesh's
+    size in ranks, and this rank among them."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = tuple(int(s) for s in shape)
+    axis_names = tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"mesh shape {shape} and axis names {axis_names} differ in length")
+    if not dist.is_initialized():
+        raise RuntimeError(f"a {shape} mesh needs torch.distributed initialized "
+                           f"with world size {math.prod(shape)}")
+    if not dist.get_rank() < math.prod(shape) <= dist.get_world_size():
+        raise ValueError(f"mesh {shape} needs {math.prod(shape)} ranks with rank "
+                         f"{dist.get_rank()}, the process group has {dist.get_world_size()}")
+    ranks = torch.arange(math.prod(shape)).reshape(shape)
+    return DeviceMesh("cpu", ranks, mesh_dim_names=axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The LM dry-run's production mesh: ``(2, 16, 16)`` over ``("pod",
+    "data", "model")`` (512 ranks; "pod" carries only data parallelism) or
+    ``(16, 16)`` over ``("data", "model")`` (256), as a ``DeviceMesh`` over
+    the initialized process group (the dry-run's :func:`fake_process_group`)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_device_mesh(shape, axes)

@@ -12,10 +12,11 @@ from repro_torch.runtime.train_loop import make_train_step
 
 
 def step_fn_for(cfg, kind: str, lr: float = 3e-4, accum_steps: int = 1,
-                grad_shardings=None, accum_dtype=None):
+                grad_shardings=None, accum_dtype=None, microbatch_repeat=None):
     """Returns (fn, argument names). The train step's optimizer is
     ``get_optimizer(cfg, lr=lr)``; its state comes from that optimizer's
-    ``init`` over the model's ``named_parameters``."""
+    ``init`` over the model's ``named_parameters``. ``microbatch_repeat``:
+    see :func:`~repro_torch.runtime.train_loop.make_train_step`."""
     if kind == "train":
         # Big-model training always remats: saved-activation footprint would
         # otherwise scale with depth x sequence. Configs may still pin an
@@ -27,6 +28,7 @@ def step_fn_for(cfg, kind: str, lr: float = 3e-4, accum_steps: int = 1,
             cfg, optimizer, accum_steps=accum_steps,
             grad_shardings=grad_shardings,
             accum_dtype=accum_dtype or torch.float32,
+            microbatch_repeat=microbatch_repeat,
         )
         return fn, ("model", "opt_state", "step", "batch")
     if kind == "prefill":

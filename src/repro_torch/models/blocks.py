@@ -277,6 +277,31 @@ def stack_apply(layers, x, cfg, ctx, collect_cache: bool = False):
     return x, aux, (caches if collect_cache else None)
 
 
+def _block_cache_specs(cfg, kind: LayerKind, batch: int, max_len: int):
+    spec: Dict[str, Any] = {}
+    if kind.cross:
+        n_src = cfg.encoder.n_frames if cfg.encoder else cfg.n_vision_tokens
+        kv = ((batch, n_src, cfg.n_kv_heads, cfg.head_dim),
+              ("cache_batch", None, "kv_heads", None), cfg.dtype)
+        spec["cross_kv"] = {"k": kv, "v": kv,
+                            "slot_pos": ((batch, n_src), ("cache_batch", None), torch.long)}
+    if kind.attn:
+        spec["attn"] = attn_lib.cache_layer_specs(cfg, batch, max_len, kind.window)
+    else:
+        spec["ssm"] = ssm_lib.ssm_cache_specs(cfg, batch)
+    return spec
+
+
+def cache_specs_tree(cfg, batch: int, max_len: int,
+                     n_layers: Optional[int] = None) -> List[Dict[str, Any]]:
+    """(shape, logical axes, dtype) leaves of the caches ``CausalLM.prefill``
+    returns: one dict per layer, in layer order. The reference stacks a
+    scanned slot's leaves ``[n_groups, ...]`` with a leading unsharded axis;
+    each of its slices is one layer's leaf here."""
+    return [_block_cache_specs(cfg, kind, batch, max_len)
+            for kind in layer_kinds(cfg, n_layers)]
+
+
 def stack_decode(layers, x, caches, cfg, ctx):
     """One-token step through the stack. Returns (x, new caches)."""
     new_caches = []

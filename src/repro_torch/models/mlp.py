@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch.nn.functional as F
 
+from repro_torch.models.layers import fsdp_gather, with_logical
 from repro_torch.models.module import ParamSpec
 
 
@@ -15,9 +16,10 @@ def swiglu_specs(d_model: int, d_ff: int, param_dtype) -> dict:
 
 
 def swiglu(p, x, cfg):
-    gate = x @ p.wi_gate.to(cfg.dtype)
-    up = x @ p.wi_up.to(cfg.dtype)
-    return (F.silu(gate) * up) @ p.wo.to(cfg.dtype)
+    gate = x @ fsdp_gather(p.wi_gate.to(cfg.dtype))
+    up = x @ fsdp_gather(p.wi_up.to(cfg.dtype))
+    h = with_logical(F.silu(gate) * up, ("batch", None, "mlp"))
+    return with_logical(h @ fsdp_gather(p.wo.to(cfg.dtype)), ("batch", None, None))
 
 
 def gelu_mlp_specs(d_model: int, d_ff: int, param_dtype) -> dict:
@@ -30,7 +32,8 @@ def gelu_mlp_specs(d_model: int, d_ff: int, param_dtype) -> dict:
 
 
 def gelu_mlp(p, x, cfg):
-    h = x @ p.wi.to(cfg.dtype)
+    h = x @ fsdp_gather(p.wi.to(cfg.dtype))
     # jax.nn.gelu defaults to the tanh approximation.
     h = F.gelu(h + p.bi.to(cfg.dtype), approximate="tanh")
-    return h @ p.wo.to(cfg.dtype) + p.bo.to(cfg.dtype)
+    h = with_logical(h, ("batch", None, "mlp"))
+    return h @ fsdp_gather(p.wo.to(cfg.dtype)) + p.bo.to(cfg.dtype)

@@ -18,13 +18,18 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.layers import (
+    distribute_logical,
     embed_tokens,
     embedding_specs,
     learned_pos,
     learned_pos_specs,
     logits_head,
+    mesh_of,
     norm,
     norm_specs,
+    on_shards,
+    shard_start,
+    with_logical,
 )
 from repro_torch.models.module import SpecModule
 
@@ -70,7 +75,8 @@ class CausalLM(nn.Module):
 
     def _make_ctx(self, tokens, extras, max_len: Optional[int]):
         b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        positions = distribute_logical(torch.arange(s, device=tokens.device).expand(b, s),
+                                       ("batch", None))
         ctx: Dict[str, Any] = {"positions": positions, "max_len": max_len or s}
         if self.cfg.encoder is not None:
             ctx["cross_src"] = self._encode(extras["frames"])
@@ -86,9 +92,13 @@ class CausalLM(nn.Module):
         x = embed_tokens(self.embed, tokens, cfg)
         if not cfg.use_rope:
             x = x + learned_pos(self.pos_dec, ctx["positions"], cfg.dtype)
+        # On a mesh: the residual stream batch-sharded, the logits also over
+        # the vocab (the layout GSPMD propagates from the parameters').
+        x = with_logical(x, ("batch", None, None))
         x, aux, caches = blocks.stack_apply(self.layers, x, cfg, ctx, collect_cache)
-        x = norm(self.final_norm, x, cfg)
-        return logits_head(self.embed, x, cfg), aux, caches
+        x = with_logical(norm(self.final_norm, x, cfg), ("batch", None, None))
+        logits = with_logical(logits_head(self.embed, x, cfg), ("batch", None, "vocab"))
+        return logits, aux, caches
 
     def prefill(self, tokens, extras=None, max_len: Optional[int] = None):
         """Fill the KV/SSM caches; return (last-token logits, caches)."""
@@ -105,9 +115,11 @@ class CausalLM(nn.Module):
         x = embed_tokens(self.embed, token, cfg)
         if not cfg.use_rope:
             x = x + learned_pos(self.pos_dec, position[:, None], cfg.dtype)
+        x = with_logical(x, ("batch", None, None))
         x, new_caches = blocks.stack_decode(self.layers, x, caches, cfg, ctx)
-        x = norm(self.final_norm, x, cfg)
-        return logits_head(self.embed, x, cfg), new_caches
+        x = with_logical(norm(self.final_norm, x, cfg), ("batch", None, None))
+        logits = with_logical(logits_head(self.embed, x, cfg), ("batch", None, "vocab"))
+        return logits, new_caches
 
 
 @contextlib.contextmanager
@@ -125,6 +137,32 @@ def using_cfg(model: CausalLM, cfg):
 # --------------------------------------------------------------------- #
 # Loss (the training objective: runtime/train_loop.py differentiates it)
 # --------------------------------------------------------------------- #
+def _label_logits(logits, labels):
+    """``logits[..., labels]`` [B, S]. On a mesh, vocab-parallel: each rank
+    reads the labels that fall in its vocab shard (0 for the others) and the
+    shards' values sum (a [B, S] all-reduce); the gradient stays sharded."""
+    mesh = mesh_of(logits)
+    v0, sharded, ins, out = 0, False, None, None
+    if mesh is not None:
+        from torch.distributed.tensor import Partial, Replicate
+
+        pl = logits.placements
+        sharded = any(p.is_shard(2) for p in pl)
+        v0 = shard_start(logits.shape, mesh, pl, 2)
+        rows = tuple(Replicate() if p.is_shard(2) else p for p in pl)
+        ins, out = (pl, rows), (tuple(Partial() if p.is_shard(2) else p for p in pl),)
+
+    def pick(logits, labels):
+        if not sharded:
+            return torch.gather(logits, -1, labels[..., None])[..., 0]
+        idx = labels - v0
+        inside = (idx >= 0) & (idx < logits.shape[-1])
+        ll = torch.gather(logits, -1, idx.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+        return torch.where(inside, ll, 0.0)
+
+    return on_shards(pick, mesh, ins, out)(logits, labels)
+
+
 def ce_loss(logits, labels, cfg, z_loss: float = 1e-4):
     """Cross-entropy over the padded vocab (pad ids masked out)."""
     vp = logits.shape[-1]
@@ -133,9 +171,12 @@ def ce_loss(logits, labels, cfg, z_loss: float = 1e-4):
         bias = torch.zeros(vp, dtype=torch.float32, device=logits.device)
         bias[cfg.vocab_size:] = -1e9
         logits = logits + bias
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
-    loss = (logz - ll).mean()
+    # torch.logsumexp's own steps, written out: on a mesh the max and the sum
+    # reduce over the vocab shards ([B, S] all-reduces), where logsumexp
+    # would gather the logits whole.
+    m = with_logical(logits.amax(-1, keepdim=True), ("batch", None, None)).detach()
+    logz = torch.log((logits - m).exp_().sum(-1)) + m[..., 0]
+    loss = (logz - _label_logits(logits, labels)).mean()
     if z_loss:
         loss = loss + z_loss * (logz ** 2).mean()
     return loss

@@ -23,8 +23,10 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.layers import fsdp_gather, grad_like, mesh_of, on_shards, with_logical
 from repro_torch.models.mlp import swiglu, swiglu_specs
 from repro_torch.models.module import ParamSpec
+from repro_torch.sharding import policy
 
 
 def moe_specs(cfg) -> dict:
@@ -52,6 +54,44 @@ def _capacity(n_tokens: int, cfg) -> int:
     return max(8, -(-c // 8) * 8)  # round up to x8
 
 
+def _dispatch_groups(t: int) -> int:
+    """Tokens are dispatched within data-parallel groups, so the gathers are
+    batched over a sharded leading dim; each group has its own capacity, as
+    real EP systems provision buffers. One group without an active mesh."""
+    g = policy.active_dp_size()
+    return g if (g > 1 and t % g == 0) else 1
+
+
+def _expert_ffn(eb, p, cfg):
+    """The experts' SwiGLU of ``eb`` [g, e, cap, d], batched over groups and
+    experts. On a mesh, on each rank's groups and experts: the weights
+    gathered over their embed dim (FSDP), their experts laid out like
+    ``eb``'s (expert parallelism when the count divides the model axis)
+    and, where the experts are not, their ``expert_mlp`` dim sharded
+    (tensor parallelism, the output a partial sum over it)."""
+    mesh = mesh_of(eb)
+    ins = out = None
+    if mesh is not None:
+        from torch.distributed.tensor import Partial
+
+        g, e, _cap, _d = eb.shape
+        rows, experts, ffn = policy.logical_spec((g, e, p.wi_gate.shape[-1]),
+                                                 ("batch", "experts", "expert_mlp"))
+        eb_pl = policy.placements(policy.Spec(rows, experts), mesh)
+        w_in = policy.placements(policy.Spec(experts, None, ffn), mesh)
+        w_out = policy.placements(policy.Spec(experts, ffn), mesh)
+        ins = (eb_pl, w_in, w_in, w_out)
+        out = ([Partial() if w.is_shard(2) else x for x, w in zip(eb_pl, w_in)],)
+
+    def ffn(eb, wi_gate, wi_up, wo):
+        gate = torch.einsum("gecd,edf->gecf", eb, wi_gate)
+        up = torch.einsum("gecd,edf->gecf", eb, wi_up)
+        return torch.einsum("gecf,efd->gecd", F.silu(gate) * up, wo)
+
+    dt = cfg.dtype
+    return on_shards(ffn, mesh, ins, out)(eb, p.wi_gate.to(dt), p.wi_up.to(dt), p.wo.to(dt))
+
+
 def _gather_rows(x, idx):
     """x: [g, n, d]; idx: [g, m] -> x[g, idx[g, j]]: [g, m, d]."""
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
@@ -60,21 +100,24 @@ def _gather_rows(x, idx):
 def moe(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (out [B, S, D], aux_loss f32 scalar).
 
-    Tokens are dispatched within ``g`` groups, each with its own capacity.
-    The reference makes one group per data-parallel shard; one card is one
-    group, and the ``g`` dimension stays for a multi-rank port."""
+    Tokens are dispatched within ``g`` groups (:func:`_dispatch_groups`),
+    each with its own capacity: one per data-parallel shard of the active
+    mesh, one on a single card."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     k, e = m.top_k, m.n_experts
-    g = 1
+    g = _dispatch_groups(t)
     tg = t // g  # tokens per dispatch group
     cap = _capacity(tg, cfg)
-    xf = x.reshape(g, tg, d)
+    # The rows laid out by "batch" before they split into groups (DTensor may
+    # have left them sharded over more mesh dims than the groups divide).
+    x = with_logical(x, ("batch", None, None))
+    xf = with_logical(x.reshape(g, tg, d), ("batch", None, None))
     dev = x.device
 
     # --- route -------------------------------------------------------- #
-    logits = xf @ p.router.to(cfg.dtype)
+    logits = xf @ fsdp_gather(p.router.to(cfg.dtype))
     probs = torch.softmax(logits.float(), dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)  # [g, tg, k]
     top_w = (top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)).to(cfg.dtype)
@@ -101,12 +144,12 @@ def moe(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     valid = slots < counts[:, :, None]
     eb = _gather_rows(sorted_vals, src)
     eb = (eb * valid.reshape(g, e * cap, 1).to(cfg.dtype)).reshape(g, e, cap, d)
+    # EP constraint only when the expert count divides the model axis.
+    eb = with_logical(eb, ("batch", "experts", None, None))
 
     # --- expert SwiGLU (batched over groups and experts) --------------- #
-    gate = torch.einsum("gecd,edf->gecf", eb, p.wi_gate.to(cfg.dtype))
-    up = torch.einsum("gecd,edf->gecf", eb, p.wi_up.to(cfg.dtype))
-    h = F.silu(gate) * up
-    out_b = torch.einsum("gecf,efd->gecd", h, p.wo.to(cfg.dtype)).reshape(g, e * cap, d)
+    out_b = with_logical(_expert_ffn(eb, p, cfg), ("batch", "experts", None, None))
+    out_b = out_b.reshape(g, e * cap, d)
 
     # --- combine (gather-only) ------------------------------------------ #
     # Sorted slot j reads buffer row sorted_e[j]*cap + pos[j]; token t's k
@@ -117,7 +160,8 @@ def moe(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     inv_order = torch.argsort(order, dim=-1)  # [g, tg*k]
     per_slot = _gather_rows(slot_out, inv_order).reshape(g, tg, k, d)
     out = torch.einsum("gtkd,gtk->gtd", per_slot, top_w.reshape(g, tg, k))
+    out = with_logical(out, ("batch", None, None))
 
     if m.n_shared:
         out = out + swiglu(p.shared, xf.reshape(1, t, d), cfg).reshape(g, tg, d)
-    return out.reshape(b, s, d), aux.float()
+    return grad_like(out.reshape(b, s, d)), aux.float()

@@ -17,8 +17,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import (fsdp_gather, mesh_of, on_shards, rmsnorm, whole_units,
+                                       with_logical)
 from repro_torch.models.module import ParamSpec
+from repro_torch.sharding import policy
 
 
 # --------------------------------------------------------------------- #
@@ -61,11 +63,11 @@ def _causal_conv(x, w, tail=None):
 
 def _project(p, x, cfg):
     dt = cfg.dtype
-    z = x @ p.wz.to(dt)
-    xs = x @ p.wx.to(dt)
-    B = x @ p.wB.to(dt)
-    C = x @ p.wC.to(dt)
-    dtv = x @ p.wdt.to(dt)
+    z = x @ fsdp_gather(p.wz.to(dt))
+    xs = x @ fsdp_gather(p.wx.to(dt))
+    B = x @ fsdp_gather(p.wB.to(dt))
+    C = x @ fsdp_gather(p.wC.to(dt))
+    dtv = x @ fsdp_gather(p.wdt.to(dt))
     return z, xs, B, C, dtv
 
 
@@ -128,6 +130,42 @@ def ssd_chunked(x, B, C, dt, A, chunk: int, h0=None):
     return y, hprev
 
 
+def _rows_and_heads(fn, x, n_heads: int, ins, outs):
+    """``fn`` on each rank's rows (batch) and SSM heads when ``x`` is a
+    DTensor (the recurrence never mixes them), else ``fn`` itself. ``ins``
+    and ``outs`` give each argument's and result's (row dim, head dim),
+    ``None`` where it has none."""
+    mesh = mesh_of(x)
+    if mesh is None:
+        return fn
+    row, head = policy.logical_spec((x.shape[0], n_heads), ("batch", "inner"))
+
+    def pl(dims):
+        entries = [None] * (max(d for d in dims if d is not None) + 1)
+        for d, entry in zip(dims, (row, head)):
+            if d is not None:
+                entries[d] = entry
+        return policy.placements(policy.Spec(*entries), mesh)
+
+    return on_shards(fn, mesh, [pl(d) for d in ins], [pl(d) for d in outs])
+
+
+def _ssd(x, B, C, dt, A, chunk: int):
+    """:func:`ssd_chunked`, on a mesh on each rank's rows and heads."""
+    fn = _rows_and_heads(lambda *a: ssd_chunked(*a, chunk=chunk), x, x.shape[2],
+                         ins=((0, 2), (0, None), (0, None), (0, 2), (None, 0)),
+                         outs=((0, 2), (0, 1)))
+    return fn(x, B, C, dt, A)
+
+
+def _state_step(B0, xh, dt, A, h_prev, C0):
+    """One recurrence step: (y [B, H, P] in f32, h [B, H, N, P])."""
+    a = torch.exp(dt * A[None, :])  # [B, H]
+    upd = torch.einsum("bn,bhp,bh->bhnp", B0.float(), xh.float(), dt)
+    h = a[:, :, None, None] * h_prev + upd
+    return torch.einsum("bn,bhnp->bhp", C0.float(), h), h
+
+
 def ssd_sequential_ref(x, B, C, dt, A):
     """O(S) sequential oracle for tests (fp32)."""
     b, s, h, p = x.shape
@@ -147,11 +185,15 @@ def ssd_sequential_ref(x, B, C, dt, A):
 # --------------------------------------------------------------------- #
 def _split_heads(xs, cfg):
     b, L, di = xs.shape
+    xs = whole_units(xs, di // cfg.ssm.head_dim, "inner")
     return xs.reshape(b, L, di // cfg.ssm.head_dim, cfg.ssm.head_dim)
 
 
 def _dt(p, dtv):
-    return F.softplus(dtv.float() + p.dt_bias[None, None, :])
+    # softplus (its own threshold of 20) written out: DTensor has no rule for
+    # softplus's backward. The clamp keeps exp finite where x > 20 is taken.
+    x = dtv.float() + p.dt_bias[None, None, :]
+    return torch.where(x > 20, x, torch.log1p(torch.exp(x.clamp(max=20))))
 
 
 def ssm_block(p, x, cfg, return_cache: bool = False):
@@ -162,18 +204,34 @@ def ssm_block(p, x, cfg, return_cache: bool = False):
     xs = F.silu(_causal_conv(xs, p.conv_x))
     B = F.silu(_causal_conv(B, p.conv_B))
     C = F.silu(_causal_conv(C, p.conv_C))
+    xs = with_logical(xs, ("batch", None, "inner"))
 
     A = -torch.exp(p.A_log.float())
     xh = _split_heads(xs, cfg)
-    y, h_final = ssd_chunked(xh, B, C, _dt(p, dtv), A, chunk=min(s.chunk, x.shape[1]))
+    y, h_final = _ssd(xh, B, C, _dt(p, dtv), A, chunk=min(s.chunk, x.shape[1]))
     y = y + p.D[None, None, :, None].to(y.dtype) * xh
-    y = y.reshape(z.shape)
+    y = whole_units(y.reshape(z.shape), xh.shape[2], "inner")
     y = rmsnorm(p.norm, y * F.silu(z), cfg.norm_eps)
-    out = y @ p.wo.to(cfg.dtype)
+    out = with_logical(y @ fsdp_gather(p.wo.to(cfg.dtype)), ("batch", None, None))
     if not return_cache:
         return out, None
     k = s.d_conv - 1
     return out, {"h": h_final, "conv": {name: arr[:, -k:, :] for name, arr in conv_in.items()}}
+
+
+def ssm_cache_specs(cfg, batch: int):
+    """(shape, logical axes, dtype) of each leaf of an SSM layer's cache."""
+    s = cfg.ssm
+    di, n, h = s.d_inner(cfg.d_model), s.d_state, s.n_heads(cfg.d_model)
+    k = s.d_conv - 1
+    return {
+        "h": ((batch, h, n, s.head_dim), ("cache_batch", None, "state", None), torch.float32),
+        "conv": {
+            "x": ((batch, k, di), ("cache_batch", None, "inner"), cfg.dtype),
+            "B": ((batch, k, n), ("cache_batch", None, "state"), cfg.dtype),
+            "C": ((batch, k, n), ("cache_batch", None, "state"), cfg.dtype),
+        },
+    }
 
 
 def ssm_block_decode(p, x, cache, cfg):
@@ -192,12 +250,13 @@ def ssm_block_decode(p, x, cache, cfg):
     A = -torch.exp(p.A_log.float())
     dt = _dt(p, dtv)[:, 0]
     xh = _split_heads(xs, cfg)[:, 0]  # [B, H, P]
-    a = torch.exp(dt * A[None, :])  # [B, H]
-    upd = torch.einsum("bn,bhp,bh->bhnp", B[:, 0].float(), xh.float(), dt)
-    h = a[:, :, None, None] * cache["h"] + upd
-    y = torch.einsum("bn,bhnp->bhp", C[:, 0].float(), h).to(cfg.dtype)
+    step = _rows_and_heads(_state_step, xh, xh.shape[1],
+                           ins=((0, None), (0, 1), (0, 1), (None, 0), (0, 1), (0, None)),
+                           outs=((0, 1), (0, 1)))
+    y, h = step(B[:, 0], xh, dt, A, cache["h"], C[:, 0])
+    y = y.to(cfg.dtype)
     y = y + p.D[None, :, None].to(y.dtype) * xh
-    y = y.reshape(z.shape[0], 1, -1)
+    y = whole_units(y.reshape(z.shape[0], 1, -1), xh.shape[1], "inner")
     y = rmsnorm(p.norm, y * F.silu(z), cfg.norm_eps)
-    out = y @ p.wo.to(cfg.dtype)
+    out = y @ fsdp_gather(p.wo.to(cfg.dtype))
     return out, {"h": h, "conv": new_conv}

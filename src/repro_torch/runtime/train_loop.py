@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.ckpt import CheckpointManager, latest_step, restore_pytree
 from repro_torch.models.convert import from_reference, to_reference
+from repro_torch.models.layers import replicate_for, with_logical
 from repro_torch.models.model import loss_fn, using_cfg
 from repro_torch.optim import Optimizer, apply_updates, clip_by_global_norm
 
@@ -83,15 +84,19 @@ def _map(fn, tree):
 
 def _grad(p: torch.Tensor) -> torch.Tensor:
     """``p.grad``, or zeros where no loss term reached ``p`` (``jax.grad``
-    gives zeros there)."""
+    gives zeros there). On a mesh the gradient is laid out like its
+    parameter (a DTensor's partial sums reduce-scattered, ZeRO style)."""
     if p.grad is None:
         p.grad = torch.zeros_like(p)
+    elif hasattr(p.grad, "placements") and tuple(p.grad.placements) != tuple(p.placements):
+        p.grad = p.grad.redistribute(p.device_mesh, p.placements)
     return p.grad
 
 
 def make_train_step(cfg, optimizer: Optimizer, max_grad_norm: float = 1.0,
                     accum_steps: int = 1, grad_shardings=None,
-                    accum_dtype=torch.float32, deterministic: bool = True):
+                    accum_dtype=torch.float32, deterministic: bool = True,
+                    microbatch_repeat=None):
     """(model, opt_state, step, batch) -> (model, opt_state, metrics).
 
     One ``torch.autograd`` backward of ``loss_fn`` under ``cfg`` (its remat
@@ -107,6 +112,12 @@ def make_train_step(cfg, optimizer: Optimizer, max_grad_norm: float = 1.0,
     ``grad_shardings`` places the reference's gradients on its mesh; on one
     card there is nothing to place, and it is accepted and ignored.
     ``deterministic``: run under :func:`deterministic_mode`.
+
+    ``microbatch_repeat``, for a trace of shapes only (every microbatch the
+    same ops on the same shapes): a function ``times -> context manager``;
+    the first microbatch runs once, inside ``microbatch_repeat(accum_steps)``,
+    in place of all ``accum_steps`` (the dry-run passes its tally's
+    ``repeated``, which charges it that many times).
     """
     del grad_shardings
 
@@ -119,19 +130,26 @@ def make_train_step(cfg, optimizer: Optimizer, max_grad_norm: float = 1.0,
                 grads = {k: _grad(p) for k, p in params.items()}
             else:
                 def split(x):
-                    return x.reshape((accum_steps, x.shape[0] // accum_steps) + x.shape[1:])
+                    # Microbatch i is rows [i*mb, (i+1)*mb). On a mesh the rows
+                    # are gathered (DTensor cannot view a sharded batch dim as
+                    # (accum, mb)) and each microbatch resharded over "batch".
+                    x = replicate_for("aten.view", "runtime/train_loop.py::make_train_step", x)
+                    x = x.reshape((accum_steps, x.shape[0] // accum_steps) + x.shape[1:])
+                    return with_logical(x, (None, "batch") + (None,) * (x.ndim - 2))
 
                 micro = _map(split, batch)
-                buffers = {k: torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+                buffers = {k: torch.zeros_like(p, dtype=accum_dtype)
                            for k, p in params.items() if p.dtype != accum_dtype}
                 loss = 0.0
-                for i in range(accum_steps):
-                    l_i, _ = loss_fn(model, _map(lambda x: x[i], micro))
-                    l_i.backward()
-                    loss = loss + l_i.detach()
-                    for k, buf in buffers.items():
-                        buf.add_(_grad(params[k]).to(accum_dtype))
-                        params[k].grad = None
+                once = microbatch_repeat is not None
+                with microbatch_repeat(accum_steps) if once else contextlib.nullcontext():
+                    for i in range(1 if once else accum_steps):
+                        l_i, _ = loss_fn(model, _map(lambda x: x[i], micro))
+                        l_i.backward()
+                        loss = loss + l_i.detach()
+                        for k, buf in buffers.items():
+                            buf.add_(_grad(params[k]).to(accum_dtype))
+                            params[k].grad = None
                 with torch.no_grad():
                     grads = {k: (buffers[k] if k in buffers else _grad(p)).div_(accum_steps).float()
                              for k, p in params.items()}
