@@ -32,6 +32,8 @@ Usage (no GPU needed):
     python -m repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
     python -m repro_torch.launch.dryrun --all                  # single-pod pass
     python -m repro_torch.launch.dryrun --all --both-meshes    # and 512 chips
+    python -m repro_torch.launch.dryrun --compare REF_DIR      # against the reference's
+                                                               # records (its --artifact-dir)
 """
 import argparse
 import contextlib
@@ -51,7 +53,7 @@ from repro_torch.launch.steps import step_fn_for
 from repro_torch.models.module import count_params
 from repro_torch.roofline import flops_model, hw
 from repro_torch.roofline.analysis import active_params, flop_roofline_terms, model_flops
-from repro_torch.roofline.tally import Tally, repeated
+from repro_torch.roofline.tally import Tally, repeated, top_holders
 from repro_torch.sharding.policy import active_mesh, dp_size
 
 MICRO_PER_DEVICE = 2  # target per-device microbatch rows for train cells
@@ -168,10 +170,10 @@ def on_mesh(mesh, rules, log=None):
         _on_mesh.depth -= 1
 
 
-def trace_step(fn, kwargs, mesh, rules, log):
-    """Run ``fn(**kwargs)`` once :func:`on_mesh` under a :class:`Tally`.
-    Returns ``(tally, output)``."""
-    with on_mesh(mesh, rules, log), Tally() as tally:
+def trace_step(fn, kwargs, mesh, rules, log, holders: bool = False):
+    """Run ``fn(**kwargs)`` once :func:`on_mesh` under a :class:`Tally`
+    (keeping its ``peak_holders`` if ``holders``). Returns ``(tally, output)``."""
+    with on_mesh(mesh, rules, log), Tally(holders=holders) as tally:
         out = fn(**kwargs)
     return tally, out
 
@@ -186,17 +188,18 @@ def _group(n_ranks: int):
 def run_cell(arch: str, shape_name: str, multi_pod: bool, rules=None,
              artifact_dir: str = ARTIFACT_DIR, tag: str = "",
              accum_override: int = None, grad_constrain: bool = False,
-             accum_dtype=None) -> dict:
+             accum_dtype=None, holders: int = 0) -> dict:
     """One cell's record. ``grad_constrain`` is the reference's flag, taken
     and not needed: the port's train step always lays each gradient out like
-    its parameter (``runtime/train_loop.py::_grad``)."""
+    its parameter (``runtime/train_loop.py::_grad``). ``holders``: print the
+    that many largest groups of storages live at the traced peak."""
     with _group(WORLD_SIZE if multi_pod else WORLD_SIZE // 2):
         return _run_cell(arch, shape_name, multi_pod, rules, artifact_dir, tag,
-                         accum_override, grad_constrain, accum_dtype)
+                         accum_override, grad_constrain, accum_dtype, holders)
 
 
 def _run_cell(arch, shape_name, multi_pod, rules, artifact_dir, tag, accum_override,
-              grad_constrain, accum_dtype) -> dict:
+              grad_constrain, accum_dtype, holders) -> dict:
     mesh = make_production_mesh(multi_pod=multi_pod)
     n_chips = mesh.size()
     shape = SHAPES[shape_name]
@@ -218,8 +221,10 @@ def _run_cell(arch, shape_name, multi_pod, rules, artifact_dir, tag, accum_overr
     arg_storages = frozenset(t.untyped_storage()._cdata for t in args)
     t_lower = time.perf_counter() - t0
 
-    tally, out = trace_step(fn, kwargs, mesh, the_rules, log)
+    tally, out = trace_step(fn, kwargs, mesh, the_rules, log, holders=holders > 0)
     t_trace = time.perf_counter() - t0 - t_lower
+    for nbytes, count, op, shape_, dtype in top_holders(tally.peak_holders, holders):
+        print(f"  at the peak: {nbytes:,} B in {count} x {op} {list(shape_)} {dtype}")
 
     colls = tally.collectives
     n_active = active_params(cfg)
@@ -279,6 +284,49 @@ def _run_cell(arch, shape_name, multi_pod, rules, artifact_dir, tag, accum_overr
     return record
 
 
+# The record fields computed by the analytic models, which equal the
+# reference's record for record; and how far the traced peak and wire bytes
+# may stray from the reference's compiled ones (a ratio, either way up).
+ANALYTIC_FIELDS = ("params", "active_params", "accum_steps", "flops_per_device",
+                   "bytes_per_device", "analytic_detail", "memory_model")
+REFERENCE_BAND = 3.0
+
+
+def reference_ratios(record: dict, reference: dict) -> dict:
+    """A traced record against the reference dry-run's compiled record of
+    the same cell: ``peak``, the traced ``peak_bytes`` over the reference's
+    argument, output and temp bytes (its own peak); ``wire``, the total wire
+    bytes over the reference's; ``analytic``, whether the
+    :data:`ANALYTIC_FIELDS` are equal."""
+    mem = reference["memory_analysis"]
+    ref_peak = mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
+    return {
+        "peak": record["memory_analysis"]["peak_bytes"] / ref_peak,
+        "wire": (record["collectives"]["total_wire_bytes"]
+                 / max(reference["collectives"]["total_wire_bytes"], 1)),
+        "analytic": all(record[k] == reference[k] for k in ANALYTIC_FIELDS),
+    }
+
+
+def compare(artifact_dir: str, reference_dir: str) -> int:
+    """Print each record of ``artifact_dir`` that ``reference_dir`` holds
+    too (the reference CLI's ``--artifact-dir``) with its
+    :func:`reference_ratios`; returns the number of cells out of band
+    (a ratio above :data:`REFERENCE_BAND`, or analytic fields that differ)."""
+    out = 0
+    for fname in sorted(os.listdir(artifact_dir)):
+        ref_path = os.path.join(reference_dir, fname)
+        if not fname.endswith(".json") or not os.path.exists(ref_path):
+            continue
+        with open(os.path.join(artifact_dir, fname)) as f, open(ref_path) as g:
+            r = reference_ratios(json.load(f), json.load(g))
+        bad = max(r["peak"], r["wire"]) > REFERENCE_BAND or not r["analytic"]
+        out += bad
+        print(f"{fname[:-5]:48s} peak {r['peak']:.3f} wire {r['wire']:.3f} "
+              f"analytic {'equal' if r['analytic'] else 'DIFFER'}{'  OUT OF BAND' if bad else ''}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
@@ -292,7 +340,16 @@ def main(argv=None):
     ap.add_argument("--grad-constrain", action="store_true")
     ap.add_argument("--accum-dtype", choices=["f32", "bf16"], default=None)
     ap.add_argument("--rules", choices=["default", "serve"], default="default")
+    ap.add_argument("--peak-holders", type=int, default=0, metavar="N",
+                    help="print the N largest groups of storages live at the traced peak")
+    ap.add_argument("--compare", metavar="REFERENCE_DIR",
+                    help="trace nothing: hold the records in --artifact-dir against the "
+                         "reference dry-run's records in REFERENCE_DIR (exit 1 out of band)")
     args = ap.parse_args(argv)
+    if args.compare:
+        bad = compare(args.artifact_dir, args.compare)
+        print(f"\n{bad} cell(s) out of band ({REFERENCE_BAND}x)")
+        raise SystemExit(1 if bad else 0)
 
     # DTensor warns, once per redistribution pattern, that it splits a
     # multi-axis collective into one per mesh dim; the tally prices each.
@@ -323,7 +380,7 @@ def main(argv=None):
                         artifact_dir=args.artifact_dir, tag=args.tag,
                         accum_override=args.accum,
                         grad_constrain=args.grad_constrain,
-                        accum_dtype=accum_dtype,
+                        accum_dtype=accum_dtype, holders=args.peak_holders,
                     )
                     rl = rec["roofline"]
                     print(

@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.layers import (apply_rope, as_layout, fsdp_gather, mesh_of, on_shards,
+from repro_torch.models.layers import (apply_rope, as_layout, fsdp_matmul, mesh_of, on_shards,
                                        rmsnorm, shard_start, whole_units, with_logical)
 from repro_torch.models.module import ParamSpec, dtensor_of
 from repro_torch.sharding import policy
@@ -48,7 +48,7 @@ def attention_specs(cfg, cross: bool = False) -> dict:
 
 def _project_q(p, x, cfg):
     b, s, _ = x.shape
-    q = whole_units(x @ fsdp_gather(p.wq.to(cfg.dtype)), cfg.n_heads, "heads")
+    q = whole_units(fsdp_matmul(x, p.wq.to(cfg.dtype)), cfg.n_heads, "heads")
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     q = with_logical(q, ("batch", None, "heads", None))
     if "qnorm" in p:
@@ -58,8 +58,8 @@ def _project_q(p, x, cfg):
 
 def _project_kv(p, x, cfg):
     b, s, _ = x.shape
-    k = whole_units(x @ fsdp_gather(p.wk.to(cfg.dtype)), cfg.n_kv_heads, "kv_heads")
-    v = whole_units(x @ fsdp_gather(p.wv.to(cfg.dtype)), cfg.n_kv_heads, "kv_heads")
+    k = whole_units(fsdp_matmul(x, p.wk.to(cfg.dtype)), cfg.n_kv_heads, "kv_heads")
+    v = whole_units(fsdp_matmul(x, p.wv.to(cfg.dtype)), cfg.n_kv_heads, "kv_heads")
     k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     k = with_logical(k, ("batch", None, "kv_heads", None))
@@ -72,7 +72,7 @@ def _project_kv(p, x, cfg):
 def _out_proj(p, ctx, cfg):
     b, s = ctx.shape[:2]
     ctx = whole_units(ctx.reshape(b, s, -1), cfg.n_heads, "heads")
-    return with_logical(ctx @ fsdp_gather(p.wo.to(cfg.dtype)), ("batch", None, None))
+    return with_logical(fsdp_matmul(ctx, p.wo.to(cfg.dtype)), ("batch", None, None))
 
 
 # --------------------------------------------------------------------- #

@@ -12,6 +12,8 @@ out what the dry-run's DTensors need beyond the reference's constraints.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.models.module import ParamSpec
@@ -43,10 +45,48 @@ def fsdp_gather(w):
         return w
     from torch.distributed.tensor import Replicate
 
-    fsdp_axes = policy.active_rules().get("embed") or ()
-    target = [Replicate() if pl.is_shard() and name in fsdp_axes else pl
-              for name, pl in zip(w.device_mesh.mesh_dim_names, w.placements)]
+    fsdp = fsdp_dims(w)
+    target = [Replicate() if i in fsdp else pl for i, pl in enumerate(w.placements)]
     return w if list(w.placements) == target else w.redistribute(w.device_mesh, target)
+
+
+def fsdp_dims(w) -> tuple:
+    """The mesh dims over which the "embed" rule shards the DTensor ``w``."""
+    fsdp_axes = policy.active_rules().get("embed") or ()
+    return tuple(i for i, (name, pl) in enumerate(zip(w.device_mesh.mesh_dim_names, w.placements))
+                 if pl.is_shard() and name in fsdp_axes)
+
+
+def fsdp_matmul(x, w):
+    """``x @ w`` for a weight ``w`` [K, N] laid out by the policy.
+
+    On a mesh, ``w`` is gathered over the FSDP axes that shard it
+    (:func:`fsdp_gather`), as GSPMD does, where ``x``'s rows divide over
+    them (train, prefill, a decode batch split over "data"). Where they do
+    not (a batch the policy leaves unsplit there, such as long-context
+    decode's one row), every rank of such an axis computes the same rows, so
+    ``w`` stays where the policy puts it: on its contracted dim ``x`` is
+    sliced locally and the partial products are all-reduced, on its output
+    dim the output is gathered; a partial sum on any other mesh dim is
+    reduced too, in the product's dtype, once. Without an active mesh, or
+    for a plain ``w``, ``x @ w``."""
+    if not policy.mesh_active() or not _is_dtensor(w):
+        return x @ w
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, fsdp = w.device_mesh, fsdp_dims(w)
+    if not _is_dtensor(x):
+        x = _replicated(x, mesh)
+    if (x.numel() // x.shape[-1]) % math.prod(mesh.size(i) for i in fsdp) == 0 or any(
+            w.placements[i].dim == 1 and not x.placements[i].is_replicate() for i in fsdp):
+        return x @ fsdp_gather(w)
+    # (A partial sum on another mesh dim is reduced first: DTensor would
+    # gather the weight rather than multiply it.)
+    xp = [Shard(x.ndim - 1) if i in fsdp and w.placements[i].dim == 0
+          else Replicate() if p.is_partial() else p for i, p in enumerate(x.placements)]
+    out = as_layout(x, mesh, xp) @ w
+    return as_layout(out, mesh, [Replicate() if i in fsdp or p.is_partial() else p
+                                 for i, p in enumerate(out.placements)])
 
 
 def whole_units(x, n_units: int, name: str):
@@ -270,13 +310,58 @@ def embed_scale(cfg) -> float:
 def embed_tokens(p, tokens, cfg):
     # Gather, then cast: the same values as the reference's cast of the
     # whole table followed by the gather.
-    return fsdp_gather(p.tokens)[tokens].to(cfg.dtype) * embed_scale(cfg)
+    table = p.tokens
+    if _vocab_parallel(table, tokens):
+        return _lookup_on_shards(table, tokens, cfg.dtype) * embed_scale(cfg)
+    return fsdp_gather(table)[tokens].to(cfg.dtype) * embed_scale(cfg)
+
+
+def _vocab_parallel(table, tokens) -> bool:
+    """Whether a lookup runs on the table's vocab shards: on a mesh, for one
+    position per row (a decode step) where the rows this rank returns are
+    fewer than the table's local shard holds; the rows then cross the wire
+    in place of the table."""
+    if not policy.mesh_active() or not _is_dtensor(table) or tokens.shape[-1] != 1:
+        return False
+    if not any(pl.is_shard(0) for pl in table.placements):
+        return False
+    local = tokens.to_local() if _is_dtensor(tokens) else tokens
+    return local.numel() < table.to_local().shape[0]
+
+
+def _lookup_on_shards(table, tokens, dtype):
+    """``table[tokens]`` in ``dtype``, vocab-parallel (as the loss's label
+    gather, ``models/model.py::_label_logits``): each rank reads the tokens
+    that fall in its vocab shard and zeroes the rest, and the rows sum over
+    the vocab axes. The table is gathered over its FSDP axes where the
+    tokens divide over them (as :func:`fsdp_matmul` gathers a weight);
+    otherwise the rows stay split on the embed dim there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    if not _is_dtensor(tokens):
+        tokens = _replicated(tokens, mesh)
+    if tokens.numel() % math.prod(mesh.size(i) for i in fsdp_dims(table)) == 0:
+        table = fsdp_gather(table)
+    t_pl = tuple(table.placements)
+    tok_pl = tuple(Replicate() if t.is_shard() else p for t, p in zip(t_pl, tokens.placements))
+    out_pl = tuple(Partial() if t.is_shard(0) else Shard(tokens.ndim) if t.is_shard(1) else p
+                   for t, p in zip(t_pl, tok_pl))
+    v0 = shard_start(table.shape, mesh, t_pl, 0)
+
+    def lookup(table, tokens):
+        idx = tokens - v0
+        inside = (idx >= 0) & (idx < table.shape[0])
+        rows = table[idx.clamp(0, table.shape[0] - 1)].to(dtype)
+        return rows.masked_fill(~inside[..., None], 0)
+
+    return on_shards(lookup, mesh, (t_pl, tok_pl), (out_pl,))(table, tokens)
 
 
 def logits_head(p, x, cfg):
     if cfg.tie_embeddings:
-        return x @ fsdp_gather(p.tokens.to(cfg.dtype)).T
-    return x @ fsdp_gather(p.unembed.to(cfg.dtype))
+        return fsdp_matmul(x, p.tokens.to(cfg.dtype).T)
+    return fsdp_matmul(x, p.unembed.to(cfg.dtype))
 
 
 # --------------------------------------------------------------------- #

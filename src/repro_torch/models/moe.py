@@ -23,7 +23,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import fsdp_gather, grad_like, mesh_of, on_shards, with_logical
+from repro_torch.models.layers import (fsdp_dims, fsdp_matmul, grad_like, mesh_of, on_shards,
+                                       with_logical)
 from repro_torch.models.mlp import swiglu, swiglu_specs
 from repro_torch.models.module import ParamSpec
 from repro_torch.sharding import policy
@@ -64,15 +65,20 @@ def _dispatch_groups(t: int) -> int:
 
 def _expert_ffn(eb, p, cfg):
     """The experts' SwiGLU of ``eb`` [g, e, cap, d], batched over groups and
-    experts. On a mesh, on each rank's groups and experts: the weights
-    gathered over their embed dim (FSDP), their experts laid out like
-    ``eb``'s (expert parallelism when the count divides the model axis)
-    and, where the experts are not, their ``expert_mlp`` dim sharded
-    (tensor parallelism, the output a partial sum over it)."""
+    experts. On a mesh, on each rank's groups and experts: their experts
+    laid out like ``eb``'s (expert parallelism when the count divides the
+    model axis) and, where the experts are not, their ``expert_mlp`` dim
+    sharded (tensor parallelism, the output a partial sum over it). The
+    weights are gathered over their embed dim (FSDP) where ``eb``'s groups
+    are split over its axes; where they are not (a batch too small to split,
+    as :func:`repro_torch.models.layers.fsdp_matmul`), the weights stay
+    where they are, ``eb`` is sliced on ``d``, the input products'
+    partial sums are all-reduced and the output is split on ``d``."""
     mesh = mesh_of(eb)
     ins = out = None
+    fsdp = ()
     if mesh is not None:
-        from torch.distributed.tensor import Partial
+        from torch.distributed.tensor import Partial, Shard
 
         g, e, _cap, _d = eb.shape
         rows, experts, ffn = policy.logical_spec((g, e, p.wi_gate.shape[-1]),
@@ -80,16 +86,31 @@ def _expert_ffn(eb, p, cfg):
         eb_pl = policy.placements(policy.Spec(rows, experts), mesh)
         w_in = policy.placements(policy.Spec(experts, None, ffn), mesh)
         w_out = policy.placements(policy.Spec(experts, ffn), mesh)
-        ins = (eb_pl, w_in, w_in, w_out)
-        out = ([Partial() if w.is_shard(2) else x for x, w in zip(eb_pl, w_in)],)
+        out_pl = [Partial() if w.is_shard(2) else x for x, w in zip(eb_pl, w_in)]
+        fsdp = fsdp_dims(p.wi_gate)
+        if any(eb_pl[i].is_shard() for i in fsdp):  # groups split there: gather the weights
+            fsdp = ()
+        for i in fsdp:
+            eb_pl, out_pl = _with(eb_pl, i, Shard(3)), _with(out_pl, i, Shard(3))
+            w_in, w_out = _with(w_in, i, Shard(1)), _with(w_out, i, Shard(2))
+        ins, out = (eb_pl, w_in, w_in, w_out), (out_pl,)
 
     def ffn(eb, wi_gate, wi_up, wo):
         gate = torch.einsum("gecd,edf->gecf", eb, wi_gate)
         up = torch.einsum("gecd,edf->gecf", eb, wi_up)
+        for i in fsdp:  # partial sums over the embed shards
+            import torch.distributed._functional_collectives as funcol
+
+            gate, up = (funcol.all_reduce(t, "sum", (mesh, i)) for t in (gate, up))
         return torch.einsum("gecf,efd->gecd", F.silu(gate) * up, wo)
 
     dt = cfg.dtype
     return on_shards(ffn, mesh, ins, out)(eb, p.wi_gate.to(dt), p.wi_up.to(dt), p.wo.to(dt))
+
+
+def _with(placements, i, placement):
+    """``placements`` with mesh dim ``i``'s entry replaced."""
+    return tuple(placement if j == i else pl for j, pl in enumerate(placements))
 
 
 def _gather_rows(x, idx):
@@ -117,7 +138,7 @@ def moe(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = x.device
 
     # --- route -------------------------------------------------------- #
-    logits = xf @ fsdp_gather(p.router.to(cfg.dtype))
+    logits = fsdp_matmul(xf, p.router.to(cfg.dtype))
     probs = torch.softmax(logits.float(), dim=-1)
     top_p, top_e = torch.topk(probs, k, dim=-1)  # [g, tg, k]
     top_w = (top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)).to(cfg.dtype)

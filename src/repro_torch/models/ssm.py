@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import (fsdp_gather, mesh_of, on_shards, rmsnorm, whole_units,
+from repro_torch.models.layers import (fsdp_matmul, mesh_of, on_shards, rmsnorm, whole_units,
                                        with_logical)
 from repro_torch.models.module import ParamSpec
 from repro_torch.sharding import policy
@@ -63,11 +63,11 @@ def _causal_conv(x, w, tail=None):
 
 def _project(p, x, cfg):
     dt = cfg.dtype
-    z = x @ fsdp_gather(p.wz.to(dt))
-    xs = x @ fsdp_gather(p.wx.to(dt))
-    B = x @ fsdp_gather(p.wB.to(dt))
-    C = x @ fsdp_gather(p.wC.to(dt))
-    dtv = x @ fsdp_gather(p.wdt.to(dt))
+    z = fsdp_matmul(x, p.wz.to(dt))
+    xs = fsdp_matmul(x, p.wx.to(dt))
+    B = fsdp_matmul(x, p.wB.to(dt))
+    C = fsdp_matmul(x, p.wC.to(dt))
+    dtv = fsdp_matmul(x, p.wdt.to(dt))
     return z, xs, B, C, dtv
 
 
@@ -212,7 +212,7 @@ def ssm_block(p, x, cfg, return_cache: bool = False):
     y = y + p.D[None, None, :, None].to(y.dtype) * xh
     y = whole_units(y.reshape(z.shape), xh.shape[2], "inner")
     y = rmsnorm(p.norm, y * F.silu(z), cfg.norm_eps)
-    out = with_logical(y @ fsdp_gather(p.wo.to(cfg.dtype)), ("batch", None, None))
+    out = with_logical(fsdp_matmul(y, p.wo.to(cfg.dtype)), ("batch", None, None))
     if not return_cache:
         return out, None
     k = s.d_conv - 1
@@ -258,5 +258,5 @@ def ssm_block_decode(p, x, cache, cfg):
     y = y + p.D[None, :, None].to(y.dtype) * xh
     y = whole_units(y.reshape(z.shape[0], 1, -1), xh.shape[1], "inner")
     y = rmsnorm(p.norm, y * F.silu(z), cfg.norm_eps)
-    out = y @ fsdp_gather(p.wo.to(cfg.dtype))
+    out = fsdp_matmul(y, p.wo.to(cfg.dtype))
     return out, {"h": h, "conv": new_conv}

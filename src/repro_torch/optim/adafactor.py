@@ -35,6 +35,28 @@ def _gather(tensors, leaf) -> torch.Tensor:
     return tensors[leaf.keys[0]]
 
 
+def _keep_layout(new, old):
+    """On a mesh, the state ``new`` laid out as the state ``old`` it
+    replaces; otherwise ``new`` as it is."""
+    if not hasattr(old, "placements") or tuple(new.placements) == tuple(old.placements):
+        return new
+    return new.redistribute(old.device_mesh, old.placements)
+
+
+def _factor_like(f, g, dim: int):
+    """On a mesh, ``f`` (``g`` reduced over ``dim``) laid out as ``g`` is on
+    its other dims, so that its product with the other factor is formed on
+    ``g``'s shards (each rank slices the factors; the ``[..., r, c]``
+    preconditioner is never whole on a rank). Otherwise ``f`` as it is."""
+    if not hasattr(f, "placements"):
+        return f
+    from torch.distributed.tensor import Replicate, Shard
+
+    target = tuple(Shard(pl.dim - (pl.dim > dim)) if pl.is_shard() and pl.dim != dim
+                   else Replicate() for pl in g.placements)
+    return f if tuple(f.placements) == target else f.redistribute(f.device_mesh, target)
+
+
 def _node(tree: dict, path, create: bool = False) -> dict:
     for key in path:
         tree = tree.setdefault(key, {}) if create else tree[key]
@@ -74,11 +96,12 @@ def adafactor(lr_fn, decay: float = 0.8, eps1: float = 1e-30, eps2: float = 1e-3
             s = _node(state, leaf.path)
             g2 = g * g + eps1
             if g.ndim >= 2:
-                s["vr"] = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
-                s["vc"] = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
+                s["vr"] = _keep_layout(beta * s["vr"] + (1 - beta) * g2.mean(dim=-1), s["vr"])
+                s["vc"] = _keep_layout(beta * s["vc"] + (1 - beta) * g2.mean(dim=-2), s["vc"])
                 denom = torch.clamp_min(s["vr"].mean(dim=-1, keepdim=True), eps1)
-                precond = (s["vr"] / denom)[..., None] * s["vc"][..., None, :]
-                u = g * torch.rsqrt(precond + eps1)
+                row = _factor_like(s["vr"] / denom, g, g.ndim - 1)
+                col = _factor_like(s["vc"], g, g.ndim - 2)
+                u = g * torch.rsqrt(row[..., None] * col[..., None, :] + eps1)
             else:
                 s["v"] = beta * s["v"] + (1 - beta) * g2
                 u = g * torch.rsqrt(s["v"] + eps1)

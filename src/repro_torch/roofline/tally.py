@@ -27,7 +27,10 @@ the dry-run traces a sweep at sizes no device holds), it records:
   all-to-all, and DTensor's own ``shard_dim_alltoall``), with its process
   group's size and ranks and its ring wire bytes
   (:class:`repro_torch.roofline.analysis.CollectiveStats`). ``wait_tensor``
-  and ``_wrap_tensor_autograd`` move nothing.
+  and ``_wrap_tensor_autograd`` move nothing;
+* with ``holders=True``, ``peak_holders``: the storages live at the peak,
+  each as ``(bytes, op, shape, dtype)`` of the op that created it, largest
+  first (:func:`top_holders` sums them by op, shape and dtype).
 
 Under DTensor (the LM dry-run), an op on DTensors is passed on
 (``NotImplemented``): DTensor desugars it into the collectives that
@@ -83,6 +86,16 @@ def repeated(times: int):
     same ops on the same shapes, run once); nothing when none is active."""
     active = getattr(_local, "active", None)
     return active[-1]._repeat(times) if active else contextlib.nullcontext()
+
+
+def top_holders(holders, n: int = 5):
+    """The ``n`` largest ``(bytes, count, op, shape, dtype)`` of
+    ``peak_holders`` summed by op, shape and dtype."""
+    groups = {}
+    for nbytes, *key in holders:
+        total, count = groups.get(tuple(key), (0, 0))
+        groups[tuple(key)] = (total + nbytes, count + 1)
+    return sorted(((b, c) + key for key, (b, c) in groups.items()), reverse=True)[:n]
 
 
 def _tensors(tree, out=None):
@@ -162,7 +175,7 @@ class Tally(TorchDispatchMode):
     """Peak live bytes, bytes read and written, int32 ops and collectives of
     the ops run inside ``with Tally() as t:``."""
 
-    def __init__(self):
+    def __init__(self, holders: bool = False):
         super().__init__()
         self.peak_bytes = 0
         self.read_bytes = 0
@@ -174,6 +187,14 @@ class Tally(TorchDispatchMode):
         self._live = {}  # storage address -> (weak ref, bytes)
         self._live_bytes = 0
         self._times = 1  # charges count this many times (:func:`repeated`)
+        self._origin = {} if holders else None  # storage address -> (op, shape, dtype)
+        self._at_peak = []  # (bytes, op, shape, dtype) live at the peak, when holders are kept
+
+    @property
+    def peak_holders(self):
+        """``(bytes, op, shape, dtype)`` of each storage live at the peak,
+        largest first (empty unless built with ``holders=True``)."""
+        return sorted(self._at_peak, reverse=True)
 
     @property
     def hbm_bytes(self) -> int:
@@ -210,7 +231,7 @@ class Tally(TorchDispatchMode):
                 del self._live[key]
                 self._live_bytes -= nbytes
 
-    def _allocate(self, t: torch.Tensor) -> None:
+    def _allocate(self, t: torch.Tensor, op: str) -> None:
         """Count ``t``'s storage live, unless it already is. Frees are found
         lazily: only an allocation that would raise the peak scans for the
         storages freed since (the live bytes are an upper bound between
@@ -225,8 +246,12 @@ class Tally(TorchDispatchMode):
             self._live_bytes -= old[1]
         self._live[ref.cdata] = (ref, storage.nbytes())
         self._live_bytes += storage.nbytes()
+        if self._origin is not None:
+            self._origin[ref.cdata] = (op, tuple(t.shape), str(t.dtype).replace("torch.", ""))
         if self._live_bytes > self.peak_bytes:
             self._free_expired()
+            if self._live_bytes > self.peak_bytes and self._origin is not None:
+                self._at_peak = [(n,) + self._origin[key] for key, (_ref, n) in self._live.items()]
             self.peak_bytes = max(self.peak_bytes, self._live_bytes)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -262,7 +287,7 @@ class Tally(TorchDispatchMode):
         in_storages = {t.untyped_storage()._cdata for t in ins}
         new = [t for t in outs if t.untyped_storage()._cdata not in in_storages]
         for t in new:
-            self._allocate(t)
+            self._allocate(t, func.overloadpacket.__name__)
         if func.namespace == "c10d":
             self._collective(func, args, kwargs)
             return out

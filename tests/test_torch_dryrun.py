@@ -33,7 +33,7 @@ from repro_torch.kernels.counts import partial_counts_op, partial_counts_plain
 from repro_torch.launch import kcore_dryrun as port_kd
 from repro_torch.launch import mesh as port_mesh
 from repro_torch.roofline import analysis, hw
-from repro_torch.roofline.tally import Tally, record_kernel
+from repro_torch.roofline.tally import Tally, record_kernel, top_holders
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL_NM = [(1 << 16, 1 << 20), (1000, 5000), (1 << 20, 1 << 22), (3_000_000, 40_000_000)]
@@ -323,6 +323,26 @@ def test_tally_peak_counts_each_storage_once_until_freed():
         c = torch.zeros(25, dtype=torch.int32, device=meta)         # 100 B -> 500
         del b, c
     assert t.peak_bytes == 800
+
+
+def test_tally_peak_holders():
+    """With ``holders=True`` the tally keeps the storages live at the peak,
+    each with the op and shape that made it; ``top_holders`` sums them."""
+    meta = torch.device("meta")
+    with Tally(holders=True) as t:
+        a = torch.zeros(100, dtype=torch.int32, device=meta)       # 400 B
+        b = torch.zeros(100, dtype=torch.int32, device=meta)       # 400 B -> 800
+        c = torch.ones(50, dtype=torch.int64, device=meta)          # 400 B -> 1200, the peak
+        del a, b
+        d = torch.zeros(200, dtype=torch.int32, device=meta)       # 800 B -> 1200, no new peak
+        del c, d
+    assert t.peak_bytes == 1200
+    assert t.peak_holders == [(400, "zeros", (100,), "int32"), (400, "zeros", (100,), "int32"),
+                              (400, "ones", (50,), "int64")]
+    assert top_holders(t.peak_holders, 1) == [(800, 2, "zeros", (100,), "int32")]
+    with Tally() as t:
+        e = torch.zeros(10, device=meta)
+    assert t.peak_holders == [] and e.shape == (10,)
 
 
 def test_tally_bytes_and_ops():

@@ -276,9 +276,61 @@ def test_fsdp_all_gather_wire_bytes():
         {"all-gather": 1}, {"all-gather": 8192}, {"all-gather": 6144}, {"nvlink": 6144})
 
 
+def test_fsdp_weight_stationary_wire_bytes():
+    """A row replicated over "data" (a batch the axis does not divide) times
+    a weight sharded over "data" on its contracted dim: the weight stays in
+    place, each rank contracts its slice of the row, and the [1, 16] local
+    partial outputs (16 f32 = 64 bytes) are all-reduced over the 4 "data"
+    ranks of one node: 2 x 3/4 x 64 = 96 bytes on the wire a rank, on
+    NVLink. No all-gather."""
+    from repro_torch.models.layers import fsdp_matmul
+
+    mesh = make_device_mesh((4, 2), ("data", "model"))
+    x = meta_dtensor((1, 64), torch.float32, mesh, Spec(None, None))
+    w = meta_dtensor((64, 32), torch.float32, mesh, Spec("data", "model"))
+    with active_mesh(mesh), Tally() as tally:
+        out = fsdp_matmul(x, w)
+    assert out.shape == (1, 32) and out.to_local().shape == (1, 16)
+    assert all(not p.is_partial() for p in out.placements)
+    c = tally.collectives
+    assert (c.count, c.op_bytes, c.wire_bytes, c.link_wire_bytes) == (
+        {"all-reduce": 1}, {"all-reduce": 64}, {"all-reduce": 96}, {"nvlink": 96})
+
+
+def test_compare_with_reference_records(tmp_path, capsys):
+    """``--compare``: each record of the artifact directory against the
+    reference's record of the same name; a cell is out of band when its
+    peak or wire ratio passes ``REFERENCE_BAND`` or an analytic field
+    differs. The reference's peak is its argument + output + temp bytes."""
+    analytic = {k: 1 for k in dryrun.ANALYTIC_FIELDS}
+    ref = dict(analytic, memory_analysis={"argument_bytes": 10, "output_bytes": 20,
+                                          "temp_bytes": 70},
+               collectives={"total_wire_bytes": 100})
+    cells = {"in_band": (300, 300, 1), "wire_out": (100, 301, 1), "analytic_out": (100, 100, 2)}
+    port_dir, ref_dir = tmp_path / "port", tmp_path / "ref"
+    port_dir.mkdir()
+    ref_dir.mkdir()
+    for name, (peak, wire, params) in cells.items():
+        (ref_dir / f"{name}.json").write_text(json.dumps(ref))
+        rec = dict(analytic, params=params, memory_analysis={"peak_bytes": peak},
+                   collectives={"total_wire_bytes": wire})
+        (port_dir / f"{name}.json").write_text(json.dumps(rec))
+    (port_dir / "no_reference.json").write_text("{}")
+    assert dryrun.reference_ratios(json.loads((port_dir / "in_band.json").read_text()), ref) == {
+        "peak": 3.0, "wire": 3.0, "analytic": True}
+    with pytest.raises(SystemExit) as exit_:
+        dryrun.main(["--artifact-dir", str(port_dir), "--compare", str(ref_dir)])
+    assert exit_.value.code == 1
+    lines = capsys.readouterr().out.splitlines()
+    assert [l.split()[0] for l in lines[:3]] == ["analytic_out", "in_band", "wire_out"]
+    assert ["OUT OF BAND" in l for l in lines[:3]] == [True, False, True]
+    assert lines[-1] == "2 cell(s) out of band (3.0x)"
+
+
 def test_cli_record(tmp_path):
     """``python -m repro_torch.launch.dryrun`` on one full cell: the final
-    line, and a record with the reference's keys under the renames."""
+    line, the two largest holders of the traced peak, and a record with the
+    reference's keys under the renames."""
     ref_keys = {"arch", "shape", "kind", "mesh", "n_chips", "params", "active_params",
                 "accum_steps", "lower_s", "compile_s", "flops_per_device", "bytes_per_device",
                 "hlo_flops_per_device_loopblind", "hlo_bytes_per_device_loopblind",
@@ -290,10 +342,11 @@ def test_cli_record(tmp_path):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "mamba2-130m",
-         "--shape", "decode_32k", "--artifact-dir", out_dir],
+         "--shape", "decode_32k", "--artifact-dir", out_dir, "--peak-holders", "2"],
         capture_output=True, text=True, env=env, cwd=REPO, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.strip().splitlines()[-1] == "all dry-run cells traced OK"
+    assert proc.stdout.count("  at the peak: ") == 2
     with open(os.path.join(out_dir, "mamba2-130m__decode_32k__16x16.json")) as f:
         rec = json.load(f)
     assert set(rec) == {renames.get(k, k) for k in ref_keys}
