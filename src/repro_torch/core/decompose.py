@@ -70,6 +70,7 @@ from repro_torch.graph.structs import BucketedGraph
 from repro_torch.kernels.fused import fused_sweep_op
 from repro_torch.kernels.hindex import hindex_op
 from repro_torch.roofline.kcore_model import sweep_cost
+from repro_torch.trace import span
 
 OPS = ("sorted", "count", "kernel", "fused")
 
@@ -351,7 +352,10 @@ def decompose(
     skipping via the bucket-adjacency bitmap); ``False`` re-sweeps every
     bucket every iteration. ``init_coreness`` (numpy array or tensor)
     resumes from a snapshot: fixed-point iterations are restartable from
-    ANY valid upper bound of the true coreness. ``on_sweep(iteration,
+    ANY valid upper bound of the true coreness, except on the nodes with no
+    neighbour in the part: they sit in no tile, no sweep visits them, and
+    they are returned with their start value, so their start must already
+    be exact (their ``ext``). ``on_sweep(iteration,
     coreness)`` is called after every sweep with an int32 tensor on the
     run's device, in original-id order (a copy: later sweeps do not change
     it).
@@ -372,143 +376,161 @@ def decompose(
     per-bucket dispatch is replaced by the active-row compaction. Snapshot
     traffic (``init_coreness`` in, ``on_sweep`` views and ``coreness`` out)
     is int32 regardless.
+
+    While a torch profiler records, the call records the spans of
+    :mod:`repro_torch.trace`: ``repro_torch.decompose`` around it, with
+    the children ``.guard``, ``.start``, ``.cand``, ``.tiles`` and
+    ``.result``, and one ``repro_torch.sweep`` a sweep, with the children
+    ``.launch`` (every launch enqueued) and ``.wait`` (the sweep's one read).
     """
     dev = resolve_device(device)
     if op not in OPS:
         raise ValueError(f"unknown op {op!r}")
     n = bg.n_nodes
     t0 = time.perf_counter()
-    est_dtype = torch.int32
-    if int16:
-        if op != "fused":
-            raise ValueError("int16=True requires op='fused' (the fused "
-                             "kernel widens in-register; the unfused "
-                             "engines assume int32 state)")
-        max_start = int(
-            (bg.degrees.astype(np.int64) + np.asarray(bg.ext, np.int64))
-            .max(initial=0)
-        )
-        # Overflow guard: estimates start at deg + ext and only decrease,
-        # so int16 is exact iff every start fits. Fall back, never wrap.
-        if max_start < (1 << 15):
-            est_dtype = torch.int16
-    ext = torch.as_tensor(np.asarray(bg.ext), dtype=torch.int32).to(dev)
-    ext_pad = torch.cat([ext, torch.zeros(1, dtype=torch.int32, device=dev)])
-    if init_coreness is not None:
-        if isinstance(init_coreness, torch.Tensor):
-            start = init_coreness.to(dev)
-        else:  # np.array copies: the snapshot may be a read-only buffer
-            start = torch.from_numpy(np.array(init_coreness)).to(dev)
-        if bg.perm is not None:
-            # original-id order -> layout order
-            start = start[torch.as_tensor(bg.perm).to(dev)]
-        start = start.to(est_dtype)
-    else:
-        start = (torch.as_tensor(bg.degrees, dtype=torch.int32).to(dev) + ext).to(est_dtype)
-    c = torch.cat([start, torch.full((1,), -1, dtype=est_dtype, device=dev)])
-    # Candidate-window bound (exact; see hindex_of_sequence docstring).
-    cand = max(1, hindex_of_sequence(bg.degrees.astype(np.int64) + bg.ext))
-
-    fused_mode = ""
-    if op == "fused":
-        fused_mode = (
-            "compaction" if len(bg.buckets) >= fused_compaction_min_tiles
-            else "cond"
-        )
-    if fused_mode == "compaction":
-        groups = _FusedGroups(bg, dev)
-        tiles_bytes = groups.memory_bytes
-    else:
-        tiles = _Tiles(bg, dev)
-        tiles_bytes = bg.memory_bytes()
-
-    wire = 2 if est_dtype == torch.int16 else 4
-    state_bytes = int(c.numel() * wire + ext_pad.numel() * 4)
-    peak = tiles_bytes + state_bytes
-
-    n_buckets = len(bg.buckets)
-    bucket_rows = np.array([b.n_rows for b in bg.buckets], dtype=np.int64)
-    bucket_widths = list(bg.widths)
-    adj = bg.bucket_adjacency()
-    active = np.ones(n_buckets, dtype=bool)
-    if seed_nodes is not None:
-        if not frontier:
-            raise ValueError("seed_nodes requires frontier=True (seed "
-                             "restriction relies on dirty-bit scheduling "
-                             "to re-activate neighbors)")
-        seeds = np.asarray(seed_nodes)
-        if seeds.dtype == bool:
-            if seeds.shape != (n,):
-                raise ValueError(f"seed mask shape {seeds.shape} != ({n},)")
-            seeds = np.nonzero(seeds)[0]
-        if bg.inv_perm is not None:
-            # Seeds arrive as original ids; the owner map is in layout
-            # order, and original id o sits at layout row inv_perm[o].
-            seeds = np.asarray(bg.inv_perm)[seeds]
-        owner = bg.node_bucket_map()[:-1][seeds]
-        active = np.zeros(n_buckets, dtype=bool)
-        active[owner[owner >= 0]] = True  # -1: deg-0 rows own no bucket
-
-    limit = max_iter if max_iter is not None else max(4, n)
-    # Uploaded once: the on_sweep view is permuted back every sweep.
-    inv_perm_dev = (
-        torch.as_tensor(bg.inv_perm).to(dev)
-        if on_sweep is not None and bg.inv_perm is not None else None
-    )
-    comm_per_iter: List[int] = []
-    active_rows_per_iter: List[int] = []
-    sweep_bytes_per_iter: List[int] = []
-    sweep_flops_per_iter: List[int] = []
-    total = 0
-    it = 0
-    while it < limit:
-        active_rows_per_iter.append(int(bucket_rows[active].sum()))
-        # Modeled HBM traffic / FLOPs of this sweep's live shape (int16
-        # halves the wire terms).
-        mb, mf = sweep_cost(
-            [(int(bucket_rows[bi]), bucket_widths[bi])
-             for bi in np.nonzero(active)[0]],
-            cand, wire_bytes=wire, fused=(op == "fused"),
-            track_dirty=frontier,
-        )
-        sweep_bytes_per_iter.append(mb)
-        sweep_flops_per_iter.append(mf)
-        if fused_mode == "compaction":
-            changed_vec, dirty_next = _compaction_sweep(
-                groups, c, ext_pad, active, cand,
-                frozen_reads=not gauss_seidel, track_dirty=frontier,
-            )
-        else:
-            changed_vec, dirty_next = _sweep(
-                c, ext_pad, tiles, active, op=op, cand=cand,
-                frozen_reads=not gauss_seidel, track_dirty=frontier,
-            )
-        # The sweep's one host synchronisation: changed counts and dirty
-        # flags come back together.
-        host = torch.cat([changed_vec, dirty_next.to(torch.int64)]).cpu().numpy()
-        changed_vec, dirty_next = host[:n_buckets], host[n_buckets:] > 0
-        changed = int(changed_vec.sum())
-        comm_per_iter.append(changed)
-        total += changed
-        it += 1
-        if on_sweep is not None:
-            # Contract: int32 values in original-id order, on the device.
-            if inv_perm_dev is not None:
-                view = c[:-1][inv_perm_dev].to(torch.int32)
+    with span("repro_torch.decompose"):
+        est_dtype = torch.int32
+        with span("repro_torch.decompose.guard"):
+            if int16:
+                if op != "fused":
+                    raise ValueError("int16=True requires op='fused' (the fused "
+                                     "kernel widens in-register; the unfused "
+                                     "engines assume int32 state)")
+                max_start = int(
+                    (bg.degrees.astype(np.int64) + np.asarray(bg.ext, np.int64))
+                    .max(initial=0)
+                )
+                # Overflow guard: estimates start at deg + ext and only
+                # decrease, so int16 is exact iff every start fits. Fall
+                # back, never wrap.
+                if max_start < (1 << 15):
+                    est_dtype = torch.int16
+        with span("repro_torch.decompose.start"):
+            ext = torch.as_tensor(np.asarray(bg.ext), dtype=torch.int32).to(dev)
+            ext_pad = torch.cat([ext, torch.zeros(1, dtype=torch.int32, device=dev)])
+            if init_coreness is not None:
+                if isinstance(init_coreness, torch.Tensor):
+                    start = init_coreness.to(dev)
+                else:  # np.array copies: the snapshot may be a read-only buffer
+                    start = torch.from_numpy(np.array(init_coreness)).to(dev)
+                if bg.perm is not None:
+                    # original-id order -> layout order
+                    start = start[torch.as_tensor(bg.perm).to(dev)]
+                start = start.to(est_dtype)
             else:
-                view = c[:-1].to(torch.int32, copy=True)
-            on_sweep(it, view)
-        if changed == 0:
-            break
-        if frontier:
-            # Next frontier: buckets with a dirty row (a neighbor changed),
-            # intersected with the static bucket-adjacency certificate --
-            # dirty bits refine the bitmap, never widen it.
-            reach = adj[changed_vec > 0].any(axis=0)
-            active = dirty_next & reach
-    coreness = c[:-1].cpu().numpy().astype(np.int32, copy=False)
-    if bg.inv_perm is not None:
-        coreness = coreness[bg.inv_perm]  # layout order -> original-id order
+                start = (torch.as_tensor(bg.degrees, dtype=torch.int32).to(dev)
+                         + ext).to(est_dtype)
+            c = torch.cat([start, torch.full((1,), -1, dtype=est_dtype, device=dev)])
+        with span("repro_torch.decompose.cand"):
+            # Candidate-window bound (exact; see hindex_of_sequence docstring).
+            cand = max(1, hindex_of_sequence(bg.degrees.astype(np.int64) + bg.ext))
+
+        fused_mode = ""
+        if op == "fused":
+            fused_mode = (
+                "compaction" if len(bg.buckets) >= fused_compaction_min_tiles
+                else "cond"
+            )
+        with span("repro_torch.decompose.tiles"):
+            if fused_mode == "compaction":
+                groups = _FusedGroups(bg, dev)
+                tiles_bytes = groups.memory_bytes
+            else:
+                tiles = _Tiles(bg, dev)
+                tiles_bytes = bg.memory_bytes()
+
+        wire = 2 if est_dtype == torch.int16 else 4
+        state_bytes = int(c.numel() * wire + ext_pad.numel() * 4)
+        peak = tiles_bytes + state_bytes
+
+        n_buckets = len(bg.buckets)
+        bucket_rows = np.array([b.n_rows for b in bg.buckets], dtype=np.int64)
+        bucket_widths = list(bg.widths)
+        adj = bg.bucket_adjacency()
+        active = np.ones(n_buckets, dtype=bool)
+        if seed_nodes is not None:
+            if not frontier:
+                raise ValueError("seed_nodes requires frontier=True (seed "
+                                 "restriction relies on dirty-bit scheduling "
+                                 "to re-activate neighbors)")
+            seeds = np.asarray(seed_nodes)
+            if seeds.dtype == bool:
+                if seeds.shape != (n,):
+                    raise ValueError(f"seed mask shape {seeds.shape} != ({n},)")
+                seeds = np.nonzero(seeds)[0]
+            if bg.inv_perm is not None:
+                # Seeds arrive as original ids; the owner map is in layout
+                # order, and original id o sits at layout row inv_perm[o].
+                seeds = np.asarray(bg.inv_perm)[seeds]
+            owner = bg.node_bucket_map()[:-1][seeds]
+            active = np.zeros(n_buckets, dtype=bool)
+            active[owner[owner >= 0]] = True  # -1: deg-0 rows own no bucket
+
+        limit = max_iter if max_iter is not None else max(4, n)
+        # Uploaded once: the on_sweep view is permuted back every sweep.
+        inv_perm_dev = (
+            torch.as_tensor(bg.inv_perm).to(dev)
+            if on_sweep is not None and bg.inv_perm is not None else None
+        )
+        comm_per_iter: List[int] = []
+        active_rows_per_iter: List[int] = []
+        sweep_bytes_per_iter: List[int] = []
+        sweep_flops_per_iter: List[int] = []
+        total = 0
+        it = 0
+        while it < limit:
+            with span("repro_torch.sweep"):
+                active_rows_per_iter.append(int(bucket_rows[active].sum()))
+                # Modeled HBM traffic / FLOPs of this sweep's live shape
+                # (int16 halves the wire terms).
+                mb, mf = sweep_cost(
+                    [(int(bucket_rows[bi]), bucket_widths[bi])
+                     for bi in np.nonzero(active)[0]],
+                    cand, wire_bytes=wire, fused=(op == "fused"),
+                    track_dirty=frontier,
+                )
+                sweep_bytes_per_iter.append(mb)
+                sweep_flops_per_iter.append(mf)
+                with span("repro_torch.sweep.launch"):
+                    if fused_mode == "compaction":
+                        changed_vec, dirty_next = _compaction_sweep(
+                            groups, c, ext_pad, active, cand,
+                            frozen_reads=not gauss_seidel, track_dirty=frontier,
+                        )
+                    else:
+                        changed_vec, dirty_next = _sweep(
+                            c, ext_pad, tiles, active, op=op, cand=cand,
+                            frozen_reads=not gauss_seidel, track_dirty=frontier,
+                        )
+                with span("repro_torch.sweep.wait"):
+                    # The sweep's one host synchronisation: changed counts
+                    # and dirty flags come back together.
+                    host = torch.cat([changed_vec, dirty_next.to(torch.int64)]).cpu().numpy()
+                changed_vec, dirty_next = host[:n_buckets], host[n_buckets:] > 0
+                changed = int(changed_vec.sum())
+                comm_per_iter.append(changed)
+                total += changed
+                it += 1
+                if on_sweep is not None:
+                    # Contract: int32 values in original-id order, on the device.
+                    if inv_perm_dev is not None:
+                        view = c[:-1][inv_perm_dev].to(torch.int32)
+                    else:
+                        view = c[:-1].to(torch.int32, copy=True)
+                    on_sweep(it, view)
+                if changed == 0:
+                    break
+                if frontier:
+                    # Next frontier: buckets with a dirty row (a neighbor
+                    # changed), intersected with the static bucket-adjacency
+                    # certificate -- dirty bits refine the bitmap, never
+                    # widen it.
+                    reach = adj[changed_vec > 0].any(axis=0)
+                    active = dirty_next & reach
+        with span("repro_torch.decompose.result"):
+            coreness = c[:-1].cpu().numpy().astype(np.int32, copy=False)
+            if bg.inv_perm is not None:
+                coreness = coreness[bg.inv_perm]  # layout order -> original-id order
     return DecomposeResult(
         coreness=coreness,
         iterations=it,

@@ -33,6 +33,7 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.graph.structs import Bucket, BucketedGraph, Graph
+from repro_torch.trace import span
 
 # Bucket pad widths: powers of two. Smallest kept modest so tiny-degree nodes
 # don't blow up the padded footprint; largest grows to cover any max degree.
@@ -454,63 +455,73 @@ def bucketize(
     the decompose engines un-permute coreness on the way out, so reordering
     stays invisible to callers. ``perm``/``inv_perm`` are propagated onto
     the returned :class:`~repro_torch.graph.structs.BucketedGraph`.
+
+    While a torch profiler records, the call records the span
+    ``repro_torch.bucketize`` with the children ``.caps``, ``.tiles`` and
+    ``.adjacency`` (:mod:`repro_torch.trace`).
     """
-    deg = g.degrees
-    n = g.n_nodes
-    if ext is None:
-        ext = np.zeros(n, dtype=np.int32)
-    ext = np.asarray(ext, dtype=np.int32)
-    if ext.shape != (n,):
-        raise ValueError("ext shape mismatch")
-    if g.perm is not None:
-        ext = ext[g.perm]  # original-id order -> layout order
+    with span("repro_torch.bucketize"):
+        deg = g.degrees
+        n = g.n_nodes
+        if ext is None:
+            ext = np.zeros(n, dtype=np.int32)
+        ext = np.asarray(ext, dtype=np.int32)
+        if ext.shape != (n,):
+            raise ValueError("ext shape mismatch")
+        if g.perm is not None:
+            ext = ext[g.perm]  # original-id order -> layout order
 
-    buckets = []
-    # node -> bucket index (sentinel slot n and degree-0 nodes map to -1).
-    node_bucket = np.full(n + 1, -1, dtype=np.int32)
-    if max_bucket_rows == "auto":
-        caps = autotune_tile_caps(g, row_align=row_align)
-    else:
-        uniform = _tile_row_cap(int((deg > 0).sum()), row_align, max_bucket_rows)
-        caps = None
-    for width, members_all in _degree_classes(deg):
-        row_cap = caps[width] if caps is not None else uniform
-        for tile_lo in range(0, members_all.size, row_cap):
-            members = members_all[tile_lo : tile_lo + row_cap]
-            nb = _align_up(members.size, row_align)
-            # Padded rows scatter into the sentinel slot `n` of the state
-            # vector (re-pinned to -1 after each update), never into a node.
-            node_ids = np.full(nb, n, dtype=np.int32)
-            node_ids[: members.size] = members
-            neigh = np.full((nb, width), n, dtype=np.int32)  # sentinel pad
-            row_deg = np.zeros(nb, dtype=np.int32)
-            row_deg[: members.size] = deg[members]
-            # Fill rows: gather each member's adjacency slice.
-            starts = g.indptr[members]
-            lens = deg[members]
-            flat_idx = (starts[:, None] + np.arange(width)[None, :]).astype(np.int64)
-            valid = np.arange(width)[None, :] < lens[:, None]
-            flat_idx = np.where(valid, flat_idx, 0)
-            vals = g.indices[flat_idx]
-            neigh[: members.size] = np.where(valid, vals, n)
-            node_bucket[members] = len(buckets)
-            buckets.append(
-                Bucket(node_ids=node_ids, neigh=neigh, deg=row_deg, width=width)
-            )
+        buckets = []
+        # node -> bucket index (sentinel slot n and degree-0 nodes map to -1).
+        node_bucket = np.full(n + 1, -1, dtype=np.int32)
+        with span("repro_torch.bucketize.caps"):
+            if max_bucket_rows == "auto":
+                caps = autotune_tile_caps(g, row_align=row_align)
+            else:
+                uniform = _tile_row_cap(int((deg > 0).sum()), row_align, max_bucket_rows)
+                caps = None
+        with span("repro_torch.bucketize.tiles"):
+            for width, members_all in _degree_classes(deg):
+                row_cap = caps[width] if caps is not None else uniform
+                for tile_lo in range(0, members_all.size, row_cap):
+                    members = members_all[tile_lo : tile_lo + row_cap]
+                    nb = _align_up(members.size, row_align)
+                    # Padded rows scatter into the sentinel slot `n` of the
+                    # state vector (re-pinned to -1 after each update),
+                    # never into a node.
+                    node_ids = np.full(nb, n, dtype=np.int32)
+                    node_ids[: members.size] = members
+                    neigh = np.full((nb, width), n, dtype=np.int32)  # sentinel pad
+                    row_deg = np.zeros(nb, dtype=np.int32)
+                    row_deg[: members.size] = deg[members]
+                    # Fill rows: gather each member's adjacency slice.
+                    starts = g.indptr[members]
+                    lens = deg[members]
+                    flat_idx = (starts[:, None] + np.arange(width)[None, :]).astype(np.int64)
+                    valid = np.arange(width)[None, :] < lens[:, None]
+                    flat_idx = np.where(valid, flat_idx, 0)
+                    vals = g.indices[flat_idx]
+                    neigh[: members.size] = np.where(valid, vals, n)
+                    node_bucket[members] = len(buckets)
+                    buckets.append(
+                        Bucket(node_ids=node_ids, neigh=neigh, deg=row_deg, width=width)
+                    )
 
-    # Bucket-adjacency bitmap for frontier scheduling. An endpoint of any
-    # edge has degree >= 1, so every real neighbor id maps to a bucket;
-    # sentinel-padded slots map to -1 and are dropped. Diagonal is kept set
-    # (conservative: a bucket that changed rescans itself next sweep) and the
-    # matrix is symmetrized — CSR symmetry makes it symmetric already, but
-    # padding asymmetries must never weaken the soundness argument.
-    nb = len(buckets)
-    adj = np.zeros((nb, nb), dtype=bool)
-    np.fill_diagonal(adj, True)
-    for bi, b in enumerate(buckets):
-        touched = np.unique(node_bucket[b.neigh.ravel()])
-        adj[bi, touched[touched >= 0]] = True
-    adj |= adj.T
+        # Bucket-adjacency bitmap for frontier scheduling. An endpoint of any
+        # edge has degree >= 1, so every real neighbor id maps to a bucket;
+        # sentinel-padded slots map to -1 and are dropped. Diagonal is kept
+        # set (conservative: a bucket that changed rescans itself next sweep)
+        # and the matrix is symmetrized — CSR symmetry makes it symmetric
+        # already, but padding asymmetries must never weaken the soundness
+        # argument.
+        with span("repro_torch.bucketize.adjacency"):
+            nb = len(buckets)
+            adj = np.zeros((nb, nb), dtype=bool)
+            np.fill_diagonal(adj, True)
+            for bi, b in enumerate(buckets):
+                touched = np.unique(node_bucket[b.neigh.ravel()])
+                adj[bi, touched[touched >= 0]] = True
+            adj |= adj.T
 
     return BucketedGraph(
         n_nodes=n, buckets=buckets, ext=ext, degrees=deg.astype(np.int32),
