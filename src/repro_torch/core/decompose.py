@@ -65,6 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.hindex import hindex_count, hindex_of_sequence, hindex_sorted
+from repro_torch.core.upload import to_device
 from repro_torch.device import resolve_device
 from repro_torch.graph.structs import BucketedGraph
 from repro_torch.kernels.fused import fused_sweep_op
@@ -136,23 +137,26 @@ class DecomposeResult:
 
 class _Tiles:
     """The buckets' tiles on the device, plus the concatenated row ids and
-    their bucket keys that the per-sweep dirty read-back gathers."""
+    their bucket keys that the per-sweep dirty read-back gathers. Each
+    bucket crosses to the device once (:func:`to_device`); the row ids and
+    keys are built there from it."""
 
     def __init__(self, bg: BucketedGraph, device: torch.device):
         n = bg.n_nodes
         self.buckets = [
-            (torch.as_tensor(b.node_ids, dtype=torch.int32).to(device),
-             torch.as_tensor(b.neigh, dtype=torch.int32).to(device))
+            (to_device(b.node_ids, torch.int32, device),
+             to_device(b.neigh, torch.int32, device))
             for b in bg.buckets
         ]
-        nb = len(bg.buckets)
-        all_ids = (np.concatenate([b.node_ids for b in bg.buckets])
-                   if nb else np.zeros(0, np.int32))
-        self.all_ids = torch.as_tensor(all_ids, dtype=torch.int32).to(device)
+        if self.buckets:
+            self.all_ids = torch.cat([ids for ids, _ in self.buckets])
+        else:
+            self.all_ids = torch.zeros(0, dtype=torch.int32, device=device)
         self.real = self.all_ids != n
-        self.tile_of = torch.as_tensor(np.concatenate(
-            [np.full(b.n_rows, bi, np.int64) for bi, b in enumerate(bg.buckets)]
-        ) if nb else np.zeros(0, np.int64)).to(device)
+        rows = torch.tensor([b.n_rows for b in bg.buckets], dtype=torch.int64)
+        # Bucket i repeated n_rows(i) times, int64 as index_add_ takes it.
+        self.tile_of = torch.repeat_interleave(
+            rows.to(device, non_blocking=True), output_size=int(rows.sum()))
 
     def dirty_next(self, dirty: torch.Tensor) -> torch.Tensor:
         """[n_buckets] bool: does some real row of the bucket have a
@@ -266,9 +270,9 @@ class _FusedGroups:
                 ranges.append((bi, start, r))
                 start += r
             self.groups.append({
-                "ids": torch.as_tensor(ids).to(device),
-                "neigh": torch.as_tensor(neigh).to(device),
-                "tile_all": torch.as_tensor(tile_all, dtype=torch.int64).to(device),
+                "ids": to_device(ids, torch.int32, device),
+                "neigh": to_device(neigh, torch.int32, device),
+                "tile_all": to_device(tile_all, torch.int64, device),
                 "ranges": ranges,
             })
             self.memory_bytes += ids.nbytes + neigh.nbytes + tile_all.nbytes
