@@ -86,6 +86,13 @@ detected and resume falls back to the part boundary.
 The on-disk format is the JAX package's, so a checkpoint directory written
 by ``repro.core.dckcore`` resumes here and the other way round.
 
+**Spans.** While a torch profiler records (:mod:`repro_torch.trace`), a
+call records ``repro_torch.dckcore`` with the children ``.divide`` (each
+part's plan), ``.layout`` (reorder and bucketize), ``.conquer``,
+``.merge`` and ``.shrink`` (the E(v) fold and the shrink of the remaining
+graph); the divide passes record ``repro_torch.divide.exact``,
+``.induce`` and ``.external`` inside them.
+
 This is the port of the JAX package's ``repro.core.dckcore``; the per-part
 reports are field-for-field the same. The watchdog on rank slices is not
 ported (``ROADMAP.md``, queue 1, "the watchdog on rank slices") and raises
@@ -116,6 +123,7 @@ from repro_torch.graph.build import (
 )
 from repro_torch.graph.reorder import bitmap_density, reorder_graph
 from repro_torch.graph.structs import BucketedGraph, Graph
+from repro_torch.trace import spanned
 
 STATE_FORMAT = 1
 SWEEP_FORMAT = 1
@@ -626,6 +634,7 @@ class _PartPipeline:
         fold_plan=None,
         device="cuda",
         watchdog=None,
+        divide_device=None,
     ):
         self.state = state
         self.remaining_graph = remaining_graph
@@ -659,6 +668,9 @@ class _PartPipeline:
         self.slice_streams = slice_streams
         self.fold_plan = fold_plan
         self.device = device
+        # Where the divide passes run: None = numpy on the host, else a
+        # torch device (main thread only: overlap and part_parallel refuse it).
+        self.divide_device = divide_device
         self.slice_busy_s = [0.0] * (part_parallel or 0)
         self.conquer_wall_s = 0.0
         self.boundary_exchange_bytes = 0
@@ -700,6 +712,7 @@ class _PartPipeline:
     def _fresh_stats(self) -> DivideStats:
         return DivideStats(chunk_slots=_resolve_chunk_slots(self.divide_chunk))
 
+    @spanned("repro_torch.dckcore.divide")
     def _plan_on(self, graph: Graph, ext: np.ndarray, cursor: int,
                  speculative: bool = False) -> Optional[PartPlan]:
         """Divide: plan the part at ``cursor`` on ``graph``/``ext``. Pure --
@@ -711,6 +724,7 @@ class _PartPipeline:
             cand_mask, extract_time = timed_candidates(
                 graph, ext, t, self.strategy,
                 chunk_slots=self.divide_chunk, stats=dstats,
+                device=self.divide_device,
             )
             if not cand_mask.any():
                 return PartPlan(
@@ -721,7 +735,8 @@ class _PartPipeline:
                 )
             t0 = time.perf_counter()
             part_g, part_local_ids = induced_subgraph(
-                graph, cand_mask, chunk_slots=self.divide_chunk, stats=dstats
+                graph, cand_mask, chunk_slots=self.divide_chunk, stats=dstats,
+                device=self.divide_device,
             )
             part_ext = ext[cand_mask]
             extract_time += time.perf_counter() - t0
@@ -747,6 +762,7 @@ class _PartPipeline:
             self.remaining_graph, self.state.ext_remaining, cursor
         )
 
+    @spanned("repro_torch.dckcore.layout")
     def _bucketize(self, plan: PartPlan) -> None:
         """Reorder + bucketize the part -- the device-layout half of the
         divide stage (numpy; prefetched plans arrive with ``bg`` built)."""
@@ -802,9 +818,10 @@ class _PartPipeline:
             return delta
         return external_info(
             graph, keep_local, upper_local,
-            chunk_slots=self.divide_chunk, stats=stats,
+            chunk_slots=self.divide_chunk, stats=stats, device=self.divide_device,
         )
 
+    @spanned("repro_torch.dckcore.shrink")
     def _speculative_shrink(self, graph: Graph, ext: np.ndarray,
                             cand_mask: np.ndarray, cursor: int) -> _Prefetch:
         """Shrink ``graph`` as if EVERY candidate of part ``cursor``
@@ -816,7 +833,8 @@ class _PartPipeline:
         keep_local = ~cand_mask
         ext_delta = self._fold_external(graph, keep_local, cand_mask, stats)
         shrink_graph, keep_ids = induced_subgraph(
-            graph, keep_local, chunk_slots=self.divide_chunk, stats=stats
+            graph, keep_local, chunk_slots=self.divide_chunk, stats=stats,
+            device=self.divide_device,
         )
         ext_next = ext[keep_local] + ext_delta
         return _Prefetch(
@@ -847,6 +865,7 @@ class _PartPipeline:
         return pf if pf.base_cursor == cursor else None
 
     # ---------------- conquer stage ---------------- #
+    @spanned("repro_torch.dckcore.conquer")
     def _conquer(self, plan: PartPlan, fn: Optional[DecomposeFn] = None,
                  lead: bool = True, account: bool = True, heartbeat=None):
         """Conquer one part; returns ``(result, bitmap density, start
@@ -946,6 +965,7 @@ class _PartPipeline:
             prefetched=plan.speculative,
         )
 
+    @spanned("repro_torch.dckcore.merge")
     def _finalize_threshold(self, plan: PartPlan, res, density: float,
                             start_sweep: int):
         """Merge a threshold part's result into the global state and
@@ -990,6 +1010,7 @@ class _PartPipeline:
         self.preprocess_time_s += pf.shrink_time_s
         report.divide_transient_bytes = plan.dstats.peak_transient_bytes
 
+    @spanned("repro_torch.dckcore.shrink")
     def _shrink_sync(self, plan: PartPlan, final_local: np.ndarray,
                      report: PartReport) -> None:
         """The sequential fold: shrink the remaining graph by the part's
@@ -1006,6 +1027,7 @@ class _PartPipeline:
         new_graph, keep_ids = induced_subgraph(
             self.remaining_graph, keep_local,
             chunk_slots=self.divide_chunk, stats=plan.dstats,
+            device=self.divide_device,
         )
         state.ext_remaining = state.ext_remaining[keep_local] + ext_delta
         state.remaining_ids = state.remaining_ids[keep_ids]
@@ -1013,6 +1035,7 @@ class _PartPipeline:
         self.preprocess_time_s += time.perf_counter() - t0
         report.divide_transient_bytes = plan.dstats.peak_transient_bytes
 
+    @spanned("repro_torch.dckcore.merge")
     def _merge_rest(self, plan: PartPlan, res, density: float,
                     start_sweep: int, annotate=None) -> None:
         state = self.state
@@ -1365,6 +1388,7 @@ def _prepare_card(names, n_slices: int, device) -> Optional[list]:
     return [torch.cuda.Stream(device=dev) for _ in range(n_slices)]
 
 
+@spanned("repro_torch.dckcore")
 def dc_kcore(
     g: Graph,
     thresholds: Sequence[int] = (),
@@ -1392,6 +1416,7 @@ def dc_kcore(
     max_retries: Optional[int] = None,
     retry_backoff_s: float = 0.05,
     fault_plan=None,
+    divide_device=None,
 ) -> tuple[np.ndarray, DCKCoreReport]:
     """Run DC-kCore. ``thresholds=()`` degenerates to the monolithic baseline
     (= the PSGraph competitor in the paper's tables).
@@ -1483,7 +1508,20 @@ def dc_kcore(
     ``boundary_fold``, ``checkpoint_save`` and ``prefetch``; the run drains
     its workers and its pending saves, releases injected hangs and
     re-raises.
+
+    ``divide_device`` (a torch device; ``None`` = numpy on the host) runs
+    the divide passes there: Exact-Divide's peel, the induced subgraphs
+    and the E(v) fold, each over the whole remaining graph at once, to the
+    same parts and coreness. Their slots are counted in each part's
+    ``DivideStats``, their device scratch is not, so
+    ``divide_transient_bytes`` reads 0. Rough-Divide's mask and the
+    layout stay on the host. It runs them on the calling thread, so it
+    excludes ``overlap`` and ``part_parallel``.
     """
+    if divide_device is not None and (overlap or part_parallel is not None):
+        raise ValueError("divide_device runs the divide passes on the calling "
+                         "thread; overlap and part_parallel run them on "
+                         "worker threads")
     slice_decomposes = slice_specs = slice_plans = fold_plan = None
     if part_parallel is not None:
         if part_parallel < 1:
@@ -1614,7 +1652,7 @@ def dc_kcore(
         # Rebuild the remaining graph from the original + finalized mask
         # (induced-subgraph composition is byte-stable).
         remaining_graph, keep_ids = induced_subgraph(
-            g, ~state.finalized, chunk_slots=divide_chunk
+            g, ~state.finalized, chunk_slots=divide_chunk, device=divide_device
         )
         if not np.array_equal(keep_ids, state.remaining_ids):
             raise ValueError("checkpoint remaining-id map inconsistent with "
@@ -1650,6 +1688,7 @@ def dc_kcore(
         fold_plan=fold_plan,
         device=device,
         watchdog=watchdog,
+        divide_device=divide_device,
     )
     try:
         pipeline.run()

@@ -28,9 +28,13 @@ import time
 from typing import List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
-from repro_torch.graph.build import DivideStats, _resolve_chunk_slots, iter_row_ranges
+from repro_torch.graph.build import (
+    DivideStats, _count_pass, _resolve_chunk_slots, iter_row_ranges,
+)
 from repro_torch.graph.structs import Graph
+from repro_torch.trace import spanned
 
 
 def rough_candidates(deg: np.ndarray, ext: np.ndarray, t: int) -> np.ndarray:
@@ -57,12 +61,14 @@ def rough_candidates_from_store(store, n_nodes: int, ext: np.ndarray, t: int) ->
     return rough_candidates(store.dup_degrees(int(n_nodes)), ext, t)
 
 
+@spanned("repro_torch.divide.exact")
 def exact_candidates(
     g: Graph,
     ext: np.ndarray,
     t: int,
     chunk_slots: Optional[int] = None,
     stats: Optional[DivideStats] = None,
+    device=None,
 ) -> np.ndarray:
     """Exact-Divide: generalized t-core mask via peeling with ext credit.
 
@@ -73,7 +79,11 @@ def exact_candidates(
     implementation pinned an edge-sized ``np.repeat`` source vector for the
     whole peel. The peeled set is identical at every chunk size (each round
     decrements alive neighbors of the full frontier, chunked or not).
+    With ``device`` (a torch device) the rounds run there, each in one
+    piece (:func:`_exact_candidates_on`), to the same mask.
     """
+    if device is not None:
+        return _exact_candidates_on(g, ext, t, device, stats)
     n = g.n_nodes
     budget = _resolve_chunk_slots(chunk_slots)
     alive = np.ones(n, dtype=bool)
@@ -123,6 +133,34 @@ def exact_candidates(
     return alive
 
 
+def _exact_candidates_on(g: Graph, ext: np.ndarray, t: int, device,
+                         stats: Optional[DivideStats]) -> np.ndarray:
+    """:func:`exact_candidates` as torch ops on ``device``: the same rounds,
+    each gathering the whole frontier's adjacency at once."""
+    n = g.n_nodes
+    indptr = torch.from_numpy(np.ascontiguousarray(g.indptr, dtype=np.int64)).to(device)
+    cols = torch.from_numpy(np.ascontiguousarray(g.indices)).to(device)
+    row_len = indptr[1:] - indptr[:-1]
+    deg = row_len + torch.from_numpy(np.asarray(ext, dtype=np.int64)).to(device)
+    alive = torch.ones(n, dtype=torch.bool, device=device)
+    frontier = torch.nonzero(deg < t).flatten()
+    while frontier.numel():
+        alive[frontier] = False
+        lens = row_len[frontier]
+        total = int(lens.sum())
+        # Each frontier row's slots, then its neighbours still alive.
+        first = indptr[frontier] - (torch.cumsum(lens, 0) - lens)
+        slots = (torch.repeat_interleave(first, lens, output_size=total)
+                 + torch.arange(total, device=device))
+        live = cols[slots].long()
+        live = live[alive[live]]
+        dec = torch.bincount(live, minlength=n)
+        _count_pass(stats, total, live.numel())
+        deg -= dec
+        frontier = torch.nonzero(alive & (deg < t) & (dec > 0)).flatten()
+    return alive.cpu().numpy()
+
+
 def timed_candidates(
     g: Graph,
     ext: np.ndarray,
@@ -130,13 +168,16 @@ def timed_candidates(
     strategy: str,
     chunk_slots: Optional[int] = None,
     stats: Optional[DivideStats] = None,
+    device=None,
 ) -> Tuple[np.ndarray, float]:
-    """Candidate mask plus extraction wall time (paper Fig 9 measurement)."""
+    """Candidate mask plus extraction wall time (paper Fig 9 measurement);
+    ``device`` runs Exact-Divide's peel there."""
     t0 = time.perf_counter()
     if strategy == "rough":
         mask = rough_candidates(g.degrees, ext, t)
     elif strategy == "exact":
-        mask = exact_candidates(g, ext, t, chunk_slots=chunk_slots, stats=stats)
+        mask = exact_candidates(g, ext, t, chunk_slots=chunk_slots, stats=stats,
+                                device=device)
     else:
         raise ValueError(f"unknown divide strategy: {strategy}")
     return mask, time.perf_counter() - t0

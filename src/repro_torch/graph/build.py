@@ -10,7 +10,9 @@ These are the host-side preprocessing steps of DC-kCore:
   row-major, column-sorted emission order under the monotone relabeling).
 * :func:`external_info` implements Definition 3 of the paper:
   ``E(v) = |N_G(v) ∩ V_upper|`` for every surviving node ``v`` — same
-  chunked row-range structure.
+  chunked row-range structure. Both take a ``device``: the same pass as
+  torch ops on that device (a GPU's memory holds the whole graph's slots),
+  to the same arrays.
 * :class:`DivideStats` tracks the divide step's peak transient host bytes
   against the dense (``np.repeat``-over-all-rows) baseline, mirroring
   :class:`~repro_torch.graph.io.IngestStats` for the ingest step.
@@ -31,9 +33,10 @@ import dataclasses
 from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.graph.structs import Bucket, BucketedGraph, Graph
-from repro_torch.trace import span
+from repro_torch.trace import span, spanned
 
 # Bucket pad widths: powers of two. Smallest kept modest so tiny-degree nodes
 # don't blow up the padded footprint; largest grows to cover any max degree.
@@ -222,15 +225,19 @@ def finalize_key_bin(
     return counts, (uniq % n_nodes).astype(np.int32)
 
 
+@spanned("repro_torch.divide.induce")
 def induced_subgraph(
     g: Graph,
     keep_mask: np.ndarray,
     chunk_slots: Optional[int] = None,
     stats: Optional[DivideStats] = None,
+    device=None,
 ) -> Tuple[Graph, np.ndarray]:
     """Induced subgraph on ``keep_mask`` with relabeled ids.
 
     Returns ``(subgraph, node_ids)`` where ``node_ids[new_id] = old_id``.
+    With ``device`` (a torch device) the pass runs there instead, in one
+    piece (:func:`_induced_subgraph_on`), to the same arrays.
 
     Runs as two chunked passes over CSR row ranges of at most ``chunk_slots``
     adjacency slots (``None`` = :data:`DEFAULT_DIVIDE_CHUNK_SLOTS`): pass 1
@@ -245,6 +252,8 @@ def induced_subgraph(
     keep_mask = np.asarray(keep_mask, dtype=bool)
     if keep_mask.shape != (g.n_nodes,):
         raise ValueError("mask shape mismatch")
+    if device is not None:
+        return _induced_subgraph_on(g, keep_mask, device, stats)
     node_ids = np.nonzero(keep_mask)[0].astype(np.int64)
     n_sub = node_ids.shape[0]
     new_id = np.full(g.n_nodes, -1, dtype=np.int64)
@@ -293,12 +302,54 @@ def induced_subgraph(
     return sub, node_ids
 
 
+def _slot_rows_on(g: Graph, device):
+    """``g``'s adjacency on ``device`` as int64 ``(src, cols)``: each slot's
+    row and column."""
+    cols = torch.from_numpy(np.ascontiguousarray(g.indices)).to(device).long()
+    lens = torch.from_numpy(np.diff(g.indptr).astype(np.int64)).to(device)
+    src = torch.repeat_interleave(torch.arange(g.n_nodes, device=device), lens,
+                                  output_size=cols.numel())
+    return src, cols
+
+
+def _count_pass(stats: Optional[DivideStats], slots: int, kept: int) -> None:
+    """A device pass's slots in ``stats``: one chunk, and no host bytes
+    (its scratch lives on the device)."""
+    if stats is not None:
+        stats.n_chunks += 1
+        stats.input_slots += int(slots)
+        stats.kept_slots += int(kept)
+
+
+def _induced_subgraph_on(g: Graph, keep_mask: np.ndarray, device,
+                         stats: Optional[DivideStats]) -> Tuple[Graph, np.ndarray]:
+    """:func:`induced_subgraph` as torch ops on ``device``: the slots whose
+    both ends are kept, relabeled, in CSR order (a mask keeps the order, so
+    the arrays are the host pass's)."""
+    keep = torch.from_numpy(keep_mask).to(device)
+    src, cols = _slot_rows_on(g, device)
+    node_ids = torch.nonzero(keep).flatten()
+    new_id = torch.full((g.n_nodes,), -1, dtype=torch.int64, device=device)
+    new_id[node_ids] = torch.arange(node_ids.numel(), device=device)
+    edge = keep[src] & keep[cols]
+    sub_src, sub_dst = new_id[src[edge]], new_id[cols[edge]].to(torch.int32)
+    del src, cols, edge
+    indptr = torch.zeros(node_ids.numel() + 1, dtype=torch.int64, device=device)
+    torch.cumsum(torch.bincount(sub_src, minlength=node_ids.numel()), 0, out=indptr[1:])
+    _count_pass(stats, g.indices.size, sub_dst.numel())
+    sub = Graph(indptr=indptr.cpu().numpy(), indices=sub_dst.cpu().numpy(),
+                n_nodes=int(node_ids.numel()))
+    return sub, node_ids.cpu().numpy()
+
+
+@spanned("repro_torch.divide.external")
 def external_info(
     g: Graph,
     keep_mask: np.ndarray,
     upper_mask: np.ndarray,
     chunk_slots: Optional[int] = None,
     stats: Optional[DivideStats] = None,
+    device=None,
 ) -> np.ndarray:
     """E(v) = number of neighbors of ``v`` inside ``upper_mask``.
 
@@ -308,10 +359,18 @@ def external_info(
     ranges (``chunk_slots`` adjacency slots of transient, ``None`` =
     :data:`DEFAULT_DIVIDE_CHUNK_SLOTS`); each range's counts land in a
     disjoint slice of the per-node accumulator, so the result is exact at
-    every chunk size.
+    every chunk size. With ``device`` (a torch device) the pass runs there,
+    in one piece, to the same array.
     """
     keep_mask = np.asarray(keep_mask, dtype=bool)
     upper_mask = np.asarray(upper_mask, dtype=bool)
+    if device is not None:
+        keep = torch.from_numpy(keep_mask).to(device)
+        src, cols = _slot_rows_on(g, device)
+        contributes = keep[src] & torch.from_numpy(upper_mask).to(device)[cols]
+        ext_full = torch.bincount(src[contributes], minlength=g.n_nodes)
+        _count_pass(stats, g.indices.size, int(contributes.sum()))
+        return ext_full[keep].to(torch.int32).cpu().numpy()
     ext_full = np.zeros(g.n_nodes, dtype=np.int64)
     budget = _resolve_chunk_slots(chunk_slots)
     persistent = keep_mask.nbytes + upper_mask.nbytes + ext_full.nbytes

@@ -32,6 +32,7 @@ pins what this module relies on.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -47,3 +48,17 @@ def span(name: str):
     if torch.autograd._profiler_enabled():
         return torch._C._profiler._RecordFunctionFast(name)
     return _OFF
+
+
+def spanned(name: str):
+    """A decorator: every call of the function runs inside ``span(name)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap

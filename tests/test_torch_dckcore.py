@@ -109,6 +109,30 @@ def test_later_slice_options_raise(option):
     np.testing.assert_array_equal(core, want)
 
 
+@pytest.mark.parametrize("strategy", ["rough", "exact"])
+@pytest.mark.parametrize("thresholds", [(8,), (16, 4), (40,)])
+def test_divide_on_a_device_matches_reference(strategy, thresholds):
+    """The divide passes as torch ops give the reference's coreness and
+    reports; only the host transient bytes, which they do not hold, read 0."""
+    g = _graph(10)
+    ref_core, ref_rep = ref_dc_kcore(g, thresholds=thresholds, strategy=strategy)
+    core, rep = dc_kcore(from_reference_arrays(g), thresholds, strategy=strategy,
+                         device="cpu", divide_device="cpu")
+    np.testing.assert_array_equal(core, ref_core)
+    for part in rep.parts:
+        assert part.divide_transient_bytes == 0
+    for part in ref_rep.parts:
+        part.divide_transient_bytes = 0
+    _assert_reports_equal(ref_rep, rep)
+
+
+@pytest.mark.parametrize("option", [dict(overlap=True), dict(part_parallel=2)])
+def test_divide_on_a_device_refuses_worker_threads(option):
+    g = from_reference_arrays(rmat(6, 4, seed=0))
+    with pytest.raises(ValueError, match="divide_device"):
+        dc_kcore(g, (4,), device="cpu", divide_device="cpu", **option)
+
+
 def test_custom_engine_conflicts():
     g = from_reference_arrays(rmat(6, 4, seed=0))
     with pytest.raises(ValueError, match="decompose_fn"):

@@ -206,6 +206,32 @@ def test_divide_candidates_bit_identical(fixture_graph, t):
         ref_divide.exact_candidates(g, ext, t, chunk_slots=512))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_divide_passes_on_a_device_equal_the_host_passes(fixture_graph, seed):
+    """The divide passes as torch ops (here on the CPU device) give the
+    host passes' arrays, and count the same slots."""
+    g = _port_graph(fixture_graph)
+    rng = np.random.default_rng(seed)
+    keep = rng.random(g.n_nodes) < 0.6
+    upper = ~keep & (rng.random(g.n_nodes) < 0.5)
+    host, dev = (port_build.DivideStats(chunk_slots=1 << 22) for _ in range(2))
+    hsub, hids = port_build.induced_subgraph(g, keep, stats=host)
+    dsub, dids = port_build.induced_subgraph(g, keep, stats=dev, device="cpu")
+    _assert_graph_equal(dsub, hsub)
+    assert dsub.indptr.dtype == np.int64 and dsub.indices.dtype == np.int32
+    np.testing.assert_array_equal(dids, hids)
+    got = port_build.external_info(g, keep, upper, stats=dev, device="cpu")
+    np.testing.assert_array_equal(got, port_build.external_info(g, keep, upper, stats=host))
+    assert got.dtype == np.int32
+    assert (dev.input_slots, dev.kept_slots) == (host.input_slots, host.kept_slots)
+    assert dev.peak_transient_bytes == 0
+    ext = rng.integers(0, 4, g.n_nodes).astype(np.int32)
+    for t in (2, 5, 9):
+        np.testing.assert_array_equal(
+            port_divide.exact_candidates(g, ext, t, device="cpu"),
+            port_divide.exact_candidates(g, ext, t))
+
+
 @pytest.mark.parametrize("budget", [1 << 10, 1 << 14, 1 << 17, 1 << 30])
 def test_plan_thresholds_bit_identical(fixture_graph, budget):
     g = fixture_graph

@@ -15,9 +15,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import trace
+from repro_torch.core.dckcore import dc_kcore
 from repro_torch.core.decompose import decompose
 from repro_torch.graph import bucketize
 from repro_torch.graph.generators import rmat
+from repro_torch.graph.oracle import peel_coreness
 
 torch.set_num_threads(1)
 
@@ -26,6 +28,12 @@ CALL_CHILDREN = ("repro_torch.decompose.guard", "repro_torch.decompose.start",
                  "repro_torch.decompose.result")
 BUCKETIZE_CHILDREN = ("repro_torch.bucketize.caps", "repro_torch.bucketize.tiles",
                       "repro_torch.bucketize.adjacency")
+# dc_kcore's own spans, and the divide passes' spans inside them.
+DCKCORE_CHILDREN = ("repro_torch.dckcore.divide", "repro_torch.dckcore.layout",
+                    "repro_torch.dckcore.conquer", "repro_torch.dckcore.merge",
+                    "repro_torch.dckcore.shrink")
+DIVIDE_SPANS = ("repro_torch.divide.exact", "repro_torch.divide.induce",
+                "repro_torch.divide.external")
 # (engine settings) of the decompose cases: both sweep functions, both
 # fused dispatches, int16 behind its guard.
 CASES = {
@@ -145,6 +153,57 @@ def test_bucketize_records_its_four_spans():
     assert all(_inside(s, spans[0]) for s in spans[1:])
     assert len(traced.buckets) == len(plain.buckets)
     np.testing.assert_array_equal(traced.bucket_adj, plain.bucket_adj)
+
+
+def _divided():
+    """A graph and one threshold that splits it into two non-empty parts."""
+    g = rmat(10, 8, seed=7)
+    return g, (int(peel_coreness(g).max()) // 2,)
+
+
+def test_dc_kcore_records_its_spans_nested_under_its_root():
+    """Under a CPU profiler a two-part Exact-Divide run records one
+    ``repro_torch.dckcore`` root with every span of the run inside it: a
+    plan a part and one for the end (``.divide``), a layout, a conquer
+    (each holding one decomposition's root) and a merge a part, one shrink,
+    and the divide passes inside the plan or the shrink that ran them. The
+    coreness equals the unprofiled run's."""
+    g, thresholds = _divided()
+    kwargs = dict(strategy="exact", engine="fused", device="cpu")
+    plain, _ = dc_kcore(g, thresholds, **kwargs)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced, report = dc_kcore(g, thresholds, **kwargs)
+    np.testing.assert_array_equal(traced, plain)
+    assert len(report.parts) == 2
+    spans = _spans(prof)
+    roots = [s for s in spans if s[0] == "repro_torch.dckcore"]
+    assert len(roots) == 1
+    assert all(_inside(s, roots[0]) for s in spans)
+    names = [s[0] for s in spans]
+    assert {n: names.count(n) for n in DCKCORE_CHILDREN} == {
+        "repro_torch.dckcore.divide": 2, "repro_torch.dckcore.layout": 2,
+        "repro_torch.dckcore.conquer": 2, "repro_torch.dckcore.merge": 2,
+        "repro_torch.dckcore.shrink": 1}
+    by_name = {n: [s for s in spans if s[0] == n] for n in set(names)}
+    for conquer in by_name["repro_torch.dckcore.conquer"]:
+        assert sum(_inside(d, conquer) for d in by_name["repro_torch.decompose"]) == 1
+    owners = by_name["repro_torch.dckcore.divide"] + by_name["repro_torch.dckcore.shrink"]
+    for name in DIVIDE_SPANS:
+        assert by_name[name]
+        for s in by_name[name]:
+            assert any(_inside(s, o) for o in owners), name
+    assert [_inside(s, by_name["repro_torch.dckcore.shrink"][0])
+            for s in by_name["repro_torch.divide.external"]] == [True]
+
+
+def test_dc_kcore_records_nothing_without_a_profiler(monkeypatch):
+    """No profiler records: the run never makes a profiler record."""
+    g, thresholds = _divided()
+    made = []
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast",
+                        lambda name: made.append(name))
+    coreness, _ = dc_kcore(g, thresholds, strategy="exact", engine="fused", device="cpu")
+    assert made == [] and (coreness >= 0).all()
 
 
 @pytest.mark.cuda
