@@ -64,7 +64,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.hindex import hindex_count, hindex_of_sequence, hindex_sorted
+from repro_torch.core.hindex import hindex_count, hindex_of_tensor, hindex_sorted
 from repro_torch.core.upload import to_device
 from repro_torch.device import resolve_device
 from repro_torch.graph.structs import BucketedGraph
@@ -383,8 +383,12 @@ def decompose(
 
     While a torch profiler records, the call records the spans of
     :mod:`repro_torch.trace`: ``repro_torch.decompose`` around it, with
-    the children ``.guard``, ``.start``, ``.cand``, ``.tiles`` and
-    ``.result``, and one ``repro_torch.sweep`` a sweep, with the children
+    the children ``.start`` (``ext`` and the degrees uploaded and added
+    into ``deg + ext``, a snapshot uploaded), ``.guard`` (the largest
+    start value, on the device), ``.cand`` (``deg + ext``'s h-index on the
+    device by :func:`~repro_torch.core.hindex.hindex_of_tensor`, and the
+    set-up's one read, which brings both values to the host), ``.tiles``
+    and ``.result``, and one ``repro_torch.sweep`` a sweep, with the children
     ``.launch`` (every launch enqueued) and ``.wait`` (the sweep's one read).
     """
     dev = resolve_device(device)
@@ -393,25 +397,18 @@ def decompose(
     n = bg.n_nodes
     t0 = time.perf_counter()
     with span("repro_torch.decompose"):
-        est_dtype = torch.int32
-        with span("repro_torch.decompose.guard"):
-            if int16:
-                if op != "fused":
-                    raise ValueError("int16=True requires op='fused' (the fused "
-                                     "kernel widens in-register; the unfused "
-                                     "engines assume int32 state)")
-                max_start = int(
-                    (bg.degrees.astype(np.int64) + np.asarray(bg.ext, np.int64))
-                    .max(initial=0)
-                )
-                # Overflow guard: estimates start at deg + ext and only
-                # decrease, so int16 is exact iff every start fits. Fall
-                # back, never wrap.
-                if max_start < (1 << 15):
-                    est_dtype = torch.int16
+        if int16 and op != "fused":
+            raise ValueError("int16=True requires op='fused' (the fused "
+                             "kernel widens in-register; the unfused "
+                             "engines assume int32 state)")
         with span("repro_torch.decompose.start"):
-            ext = torch.as_tensor(np.asarray(bg.ext), dtype=torch.int32).to(dev)
-            ext_pad = torch.cat([ext, torch.zeros(1, dtype=torch.int32, device=dev)])
+            ext_pad = torch.cat([
+                torch.as_tensor(np.asarray(bg.ext), dtype=torch.int32).to(dev),
+                torch.zeros(1, dtype=torch.int32, device=dev)])
+            # deg + ext: the start state, and what the guard and the
+            # candidate window are defined on, with a snapshot or without.
+            deg_ext = (torch.as_tensor(bg.degrees, dtype=torch.int32).to(dev)
+                       + ext_pad[:n])
             if init_coreness is not None:
                 if isinstance(init_coreness, torch.Tensor):
                     start = init_coreness.to(dev)
@@ -420,14 +417,23 @@ def decompose(
                 if bg.perm is not None:
                     # original-id order -> layout order
                     start = start[torch.as_tensor(bg.perm).to(dev)]
-                start = start.to(est_dtype)
             else:
-                start = (torch.as_tensor(bg.degrees, dtype=torch.int32).to(dev)
-                         + ext).to(est_dtype)
-            c = torch.cat([start, torch.full((1,), -1, dtype=est_dtype, device=dev)])
+                start = deg_ext
+        with span("repro_torch.decompose.guard"):
+            # Overflow guard: estimates start at deg + ext and only
+            # decrease, so int16 is exact iff every start fits. Fall back,
+            # never wrap.
+            max_start = deg_ext.amax() if int16 and n else deg_ext.new_zeros(())
         with span("repro_torch.decompose.cand"):
-            # Candidate-window bound (exact; see hindex_of_sequence docstring).
-            cand = max(1, hindex_of_sequence(bg.degrees.astype(np.int64) + bg.ext))
+            # Candidate-window bound (exact; see hindex_of_sequence
+            # docstring), read back with the guard's value in one read.
+            max_start, h = torch.stack(
+                [max_start.to(torch.int64), hindex_of_tensor(deg_ext)]).cpu().tolist()
+            cand = max(1, h)
+        est_dtype = torch.int16 if int16 and max_start < (1 << 15) else torch.int32
+        c = torch.cat([start.to(est_dtype),
+                       torch.full((1,), -1, dtype=est_dtype, device=dev)])
+        del deg_ext, start  # off the card before the tiles go up
 
         fused_mode = ""
         if op == "fused":

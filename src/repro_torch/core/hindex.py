@@ -18,7 +18,11 @@ Two equivalent tensor forms (the ``"sorted"`` and ``"count"`` engines):
 
 Both operate on padded dense rows whose pad slots hold ``-1`` (never >= any
 threshold, since estimates are >= 0). :func:`hindex_of_sequence` and
-:func:`hindex_brute` are numpy, as in the JAX package.
+:func:`hindex_brute` are numpy, as in the JAX package;
+:func:`hindex_of_tensor` is :func:`hindex_of_sequence` on a tensor's own
+device, which ``decompose`` runs on the start values it has uploaded and
+reads back in its set-up's one read, together with the int16 guard's
+largest start value.
 """
 from __future__ import annotations
 
@@ -79,6 +83,26 @@ def hindex_of_sequence(values: np.ndarray) -> int:
     i = np.arange(1, v.size + 1)
     ok = v >= i
     return int(i[ok].max(initial=0))
+
+
+def hindex_of_tensor(values: torch.Tensor) -> torch.Tensor:
+    """:func:`hindex_of_sequence` of a 1-D integer tensor, on its device.
+
+    Returns a 0-d int64 tensor on ``values.device`` and reads nothing back,
+    so a caller can bring it to the host in a read it makes anyway. The
+    predicate ``#{v >= x} >= x`` holds for every ``x`` up to the h-index and
+    for none above it, so the h-index is built bit by bit from the top: a
+    bit stays set where the count at the value with it set still reaches
+    that value. Each of the ``n.bit_length()`` bits (the h-index is at most
+    ``n``) is one compare and one int32 sum over the values: no sort, no
+    atomics, 5 bytes of scratch a value (the compare's bools and the int32
+    copy the sum reads; an int64 sum would copy 8).
+    """
+    h = torch.zeros((), dtype=torch.int64, device=values.device)
+    for bit in reversed(range(values.numel().bit_length())):
+        t = h + (1 << bit)
+        h = torch.where((values >= t).sum(dtype=torch.int32) >= t, t, h)
+    return h
 
 
 def hindex_brute(neigh_cores: np.ndarray, ext: int) -> int:

@@ -13,10 +13,12 @@ reordered layout, ``init_coreness`` resume, the ``on_sweep`` views and
 import dataclasses
 import functools
 import inspect
+import sys
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro.core.decompose import decompose as ref_decompose
 from repro.graph.build import bucketize as ref_bucketize
@@ -150,6 +152,60 @@ def test_int16_overflow_falls_back_to_int32():
     ref, port = _both(_bucketed("star_overflow", None), op="fused", int16=True)
     assert port.est_dtype == "int32"
     _assert_result_equal(ref, port)
+
+
+@functools.lru_cache(maxsize=None)
+def _ext_part(max_start: int):
+    """rmat9 with ``ext`` > 0 on most rows and its largest ``deg + ext`` at
+    ``max_start``."""
+    g = _graph("rmat9")
+    deg = np.diff(g.indptr).astype(np.int64)
+    ext = (np.arange(g.n_nodes) % 5).astype(np.int32)
+    top = int(np.argmax(deg))
+    ext[top] = max_start - deg[top]
+    return ref_bucketize(g, ext=ext)
+
+
+@pytest.mark.parametrize("case", [(1 << 15) - 1, 1 << 15, "star_overflow"])
+def test_int16_guard_on_the_device_equals_the_host_guard(case):
+    """The call's guard, taken from ``deg + ext`` on the device, against the
+    int64 host guard it replaced; the window (``cand``) pins the modeled
+    sweep cost, which the full comparison checks."""
+    bg = _bucketed("star_overflow", None) if case == "star_overflow" else _ext_part(case)
+    host_fits = int((bg.degrees.astype(np.int64) + np.asarray(bg.ext, np.int64))
+                    .max(initial=0)) < (1 << 15)
+    assert host_fits == (case == (1 << 15) - 1)
+    ref, port = _both(bg, op="fused", int16=True)
+    assert port.est_dtype == ("int16" if host_fits else "int32")
+    _assert_result_equal(ref, port)
+
+
+@pytest.mark.parametrize("resume", [False, True])
+def test_call_set_up_runs_no_host_hindex(monkeypatch, resume):
+    """With the host h-index made to raise, a traced call still equals the
+    reference and records each set-up span once."""
+    def boom(*args, **kwargs):
+        raise AssertionError("the call sorted its start values on the host")
+
+    monkeypatch.setattr(sys.modules["repro_torch.core.hindex"], "hindex_of_sequence", boom)
+    monkeypatch.setattr(sys.modules["repro_torch.core.decompose"], "hindex_of_sequence",
+                        boom, raising=False)
+    bg = _ext_part((1 << 15) - 1)
+    kw = dict(op="fused", int16=True)
+    if resume:
+        # A valid upper bound of the coreness other than the default start.
+        exact = ref_decompose(bg, **kw).coreness.astype(np.int64)
+        start = np.minimum(exact + 1, bg.degrees.astype(np.int64) + bg.ext)
+        kw["init_coreness"] = start.astype(np.int32)
+    ref = ref_decompose(bg, **kw)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        port = decompose(from_reference_arrays(bg), device="cpu", **kw)
+    np.testing.assert_array_equal(port.coreness, ref.coreness)
+    assert port.iterations == ref.iterations
+    assert port.est_dtype == ref.est_dtype == "int16"
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    for name in ("guard", "start", "cand"):
+        assert names.count(f"repro_torch.decompose.{name}") == 1, name
 
 
 def test_int16_requires_fused():

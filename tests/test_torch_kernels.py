@@ -26,6 +26,7 @@ from repro.kernels.hindex import hindex_pallas as ref_hindex_pallas
 from repro_torch.core import hindex as port_hindex
 from repro_torch.kernels.fused import fused_sweep_op, fused_sweep_plain
 from repro_torch.kernels.hindex import hindex_op, hindex_plain
+from test_torch_call_setup_cuda import DRAWS, draw
 
 # The graphs here are small and pytest-xdist runs several workers side by
 # side: one intra-op thread per worker keeps them from contending for cores.
@@ -68,6 +69,18 @@ def test_host_hindex_helpers_are_copies():
         assert port_hindex.hindex_of_sequence(v) == ref_hindex.hindex_of_sequence(v)
         row = rng.integers(-1, 30, size=16).astype(np.int32)
         assert port_hindex.hindex_brute(row, 2) == ref_hindex.hindex_brute(row, 2)
+
+
+@pytest.mark.parametrize("name", DRAWS)
+def test_hindex_of_tensor_matches_the_host_hindex(name):
+    """``decompose``'s set-up h-index, on a CPU tensor (on the card:
+    ``test_torch_call_setup_cuda.py``)."""
+    values = draw(name)
+    got = port_hindex.hindex_of_tensor(torch.as_tensor(values, dtype=torch.int32))
+    assert got.dim() == 0 and got.dtype == torch.int64
+    assert int(got) == ref_hindex.hindex_of_sequence(values)
+    if name.startswith("h_is_n"):
+        assert int(got) == values.size
 
 
 # --------------------------------------------------------------------- #
