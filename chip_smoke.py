@@ -269,12 +269,11 @@ def main() -> int:
     from repro_torch.graph.oracle import peel_coreness
     from repro_torch.core.distributed import MeshPlan, make_distributed_decompose
     from repro_torch.kernels import build
-    from repro_torch.kernels.counts import (counts_launch_plan, partial_counts_op,
-                                            partial_counts_plain)
-    from repro_torch.kernels.counts.ops import COUNTS_PATHS
-    from repro_torch.kernels.fused import fused_launch_plan, fused_sweep_op, fused_sweep_plain
-    from repro_torch.kernels.fused.ops import PATHS
+    from repro_torch.kernels.counts import partial_counts_op, partial_counts_plain
+    from repro_torch.kernels.fused import fused_sweep_op, fused_sweep_plain
     from repro_torch.kernels.hindex import hindex_op, hindex_plain
+    from repro_torch.kernels.plan import (COUNTS_PATHS, PATHS, counts_launch_plan,
+                                          fused_launch_plan)
     from repro_torch.roofline import hw
     from repro_torch.roofline.kcore_model import roofline_time_s, sweep_cost
 

@@ -136,10 +136,13 @@ class DecomposeResult:
 
 
 class _Tiles:
-    """The buckets' tiles on the device, plus the concatenated row ids and
+    """The buckets' tiles on the device, the one resident layout of every
+    engine and both fused dispatches, plus the concatenated row ids and
     their bucket keys that the per-sweep dirty read-back gathers. Each
     bucket crosses to the device once (:func:`to_device`); the row ids and
-    keys are built there from it."""
+    keys are built there from it. ``classes`` holds the compaction
+    dispatch's launch groups: per width class, ascending, the class's
+    buckets in bucket order as ``(bucket, first row in all_ids, rows)``."""
 
     def __init__(self, bg: BucketedGraph, device: torch.device):
         n = bg.n_nodes
@@ -157,13 +160,36 @@ class _Tiles:
         # Bucket i repeated n_rows(i) times, int64 as index_add_ takes it.
         self.tile_of = torch.repeat_interleave(
             rows.to(device, non_blocking=True), output_size=int(rows.sum()))
+        by_width: dict = {}
+        start = 0
+        for bi, b in enumerate(bg.buckets):
+            by_width.setdefault(b.width, []).append((bi, start, b.n_rows))
+            start += b.n_rows
+        self.classes = [by_width[w] for w in sorted(by_width)]
 
-    def dirty_next(self, dirty: torch.Tensor) -> torch.Tensor:
+    def dirty_next(self, dirty: torch.Tensor, track_dirty: bool) -> torch.Tensor:
         """[n_buckets] bool: does some real row of the bucket have a
-        changed neighbor (its dirty bit set)?"""
+        changed neighbor (its dirty bit set)? All False when the sweep
+        tracked no dirty bits."""
+        if not (track_dirty and self.buckets):
+            return torch.zeros(len(self.buckets), dtype=torch.bool, device=dirty.device)
         flags = ((dirty[self.all_ids] > 0) & self.real).to(torch.int32)
         out = torch.zeros(len(self.buckets), dtype=torch.int32, device=dirty.device)
         return out.index_add_(0, self.tile_of, flags) > 0
+
+
+def _tile_bytes(bg: BucketedGraph, fused_mode: str) -> int:
+    """Resident tile bytes of the reference's memory model (its
+    ``peak_bytes`` less the state): the bucketed graph for the per-bucket
+    dispatches; for the compaction dispatch each width class as one
+    ``[rows + 1, width]`` int32 array with its row ids and row keys (the
+    reference's all-sentinel pad row included)."""
+    if fused_mode != "compaction":
+        return bg.memory_bytes()
+    rows: dict = {}
+    for b in bg.buckets:
+        rows[b.width] = rows.get(b.width, 0) + b.n_rows
+    return sum((r + 1) * (8 + 4 * w) for w, r in rows.items())
 
 
 def _apply_op(gathered, ext_rows, op: str, cand: int):
@@ -221,116 +247,38 @@ def _sweep(c, ext_pad, tiles: _Tiles, active: np.ndarray, *, op: str,
         # fresh copy per bucket update.
         c[node_ids] = est.to(c.dtype)
         c[-1] = -1  # re-pin sentinel
-    if track_dirty and tiles.buckets:
-        dirty_next = tiles.dirty_next(dirty)
-    else:
-        dirty_next = torch.zeros(len(tiles.buckets), dtype=torch.bool, device=c.device)
-    return changed, dirty_next
+    return changed, tiles.dirty_next(dirty, track_dirty)
 
 
-class _FusedGroups:
-    """Width-grouped resident layout for the compaction dispatch of the
-    fused engine.
-
-    Every tile of a width class is concatenated into one resident
-    ``[rows+1, width]`` array (ascending width == bucketize's emission
-    order; the extra row is the reference layout's all-sentinel pad row,
-    kept so the resident bytes -- and ``peak_bytes`` -- equal the JAX
-    package's), and each sweep compacts the ACTIVE tiles' row indices into
-    one dense index vector per group: one fused launch per width class,
-    work proportional to the live frontier.
-    """
-
-    def __init__(self, bg: BucketedGraph, device: torch.device):
-        n = bg.n_nodes
-        nb = len(bg.buckets)
-        by_width: dict = {}
-        for bi, b in enumerate(bg.buckets):
-            by_width.setdefault(b.width, []).append(bi)
-        self.n_buckets = nb
-        self.groups = []
-        self.memory_bytes = 0
-        for width in sorted(by_width):
-            bis = by_width[width]
-            ids = np.concatenate(
-                [np.asarray(bg.buckets[bi].node_ids, np.int32) for bi in bis]
-                + [np.full(1, n, np.int32)]
-            )
-            neigh = np.concatenate(
-                [np.asarray(bg.buckets[bi].neigh, np.int32) for bi in bis]
-                + [np.full((1, width), n, np.int32)]
-            )
-            tile_all = np.concatenate(
-                [np.full(bg.buckets[bi].n_rows, bi, np.int32) for bi in bis]
-                + [np.full(1, nb, np.int32)]
-            )
-            ranges, start = [], 0
-            for bi in bis:
-                r = bg.buckets[bi].n_rows
-                ranges.append((bi, start, r))
-                start += r
-            self.groups.append({
-                "ids": to_device(ids, torch.int32, device),
-                "neigh": to_device(neigh, torch.int32, device),
-                "tile_all": to_device(tile_all, torch.int64, device),
-                "ranges": ranges,
-            })
-            self.memory_bytes += ids.nbytes + neigh.nbytes + tile_all.nbytes
-
-    @staticmethod
-    def active_rows(grp, active: np.ndarray):
-        """Dense row-index compaction of ``grp``'s active tiles.
-
-        Returns ``(row_idx, tile_of_row)`` int64 arrays, or ``None`` when no
-        tile of this group is active.
-        """
-        sel = [(bi, s, r) for bi, s, r in grp["ranges"] if active[bi]]
-        if not sel:
-            return None
-        row_idx = np.concatenate([np.arange(s, s + r, dtype=np.int64)
-                                  for _bi, s, r in sel])
-        tile_of = np.concatenate([np.full(r, bi, np.int64) for bi, _s, r in sel])
-        return row_idx, tile_of
-
-
-def _compaction_sweep(groups: _FusedGroups, c, ext_pad, active: np.ndarray,
+def _compaction_sweep(tiles: _Tiles, c, ext_pad, active: np.ndarray,
                       cand: int, frozen_reads: bool, track_dirty: bool):
     """One fused-engine sweep, compaction dispatch (many tiles), updating
     ``c`` in place; same return contract as :func:`_sweep`.
 
-    Width groups run ascending (bucketize order): Gauss-Seidel across
-    groups when ``frozen_reads=False``, textbook Jacobi (reads frozen at
-    sweep start) otherwise. Within one group's single launch the reads are
-    always Jacobi.
+    One launch per width class over its active tiles' rows, concatenated
+    on the device. Classes run ascending (bucketize order): Gauss-Seidel
+    across classes when ``frozen_reads=False``, textbook Jacobi (reads
+    frozen at sweep start) otherwise. Within one class's single launch the
+    reads are always Jacobi.
     """
-    nb = groups.n_buckets
-    sentinel = c.shape[0] - 1
-    src = c.clone() if frozen_reads else c  # what every group reads
-    changed = torch.zeros(nb + 1, dtype=torch.int64, device=c.device)
+    src = c.clone() if frozen_reads else c  # what every class reads
     dirty = torch.zeros(c.shape[0], dtype=torch.int8, device=c.device)
-    for grp in groups.groups:
-        compacted = _FusedGroups.active_rows(grp, active)
-        if compacted is None:
+    changed = torch.zeros(len(tiles.buckets), dtype=torch.int64, device=c.device)
+    for cls in tiles.classes:
+        sel = [(bi, start, rows) for bi, start, rows in cls if active[bi]]
+        if not sel:
             continue
-        row_idx, tile_of = (torch.from_numpy(a).to(c.device) for a in compacted)
-        ids_a = grp["ids"][row_idx]
-        neigh_a = grp["neigh"][row_idx]
+        ids = torch.cat([tiles.buckets[bi][0] for bi, _, _ in sel])
+        neigh = torch.cat([tiles.buckets[bi][1] for bi, _, _ in sel])
         est, row_changed, _ = fused_sweep_op(
-            src, ext_pad, ids_a, neigh_a, cand=cand, track_dirty=track_dirty,
+            src, ext_pad, ids, neigh, cand=cand, track_dirty=track_dirty,
             dirty=dirty,
         )
+        tile_of = torch.cat([tiles.tile_of[start:start + rows] for _, start, rows in sel])
         changed.index_add_(0, tile_of, row_changed.to(torch.int64))
-        c[ids_a] = est.to(c.dtype)
+        c[ids] = est.to(c.dtype)
         c[-1] = -1  # re-pin sentinel
-    if track_dirty:
-        out = torch.zeros(nb + 1, dtype=torch.int32, device=c.device)
-        for grp in groups.groups:
-            flag = ((dirty[grp["ids"]] > 0) & (grp["ids"] != sentinel)).to(torch.int32)
-            out.index_add_(0, grp["tile_all"], flag)  # pad row keys slot nb
-        dirty_next = out[:nb] > 0
-    else:
-        dirty_next = torch.zeros(nb, dtype=torch.bool, device=c.device)
-    return changed[:nb], dirty_next
+    return changed, tiles.dirty_next(dirty, track_dirty)
 
 
 def decompose(
@@ -442,16 +390,11 @@ def decompose(
                 else "cond"
             )
         with span("repro_torch.decompose.tiles"):
-            if fused_mode == "compaction":
-                groups = _FusedGroups(bg, dev)
-                tiles_bytes = groups.memory_bytes
-            else:
-                tiles = _Tiles(bg, dev)
-                tiles_bytes = bg.memory_bytes()
+            tiles = _Tiles(bg, dev)
 
         wire = 2 if est_dtype == torch.int16 else 4
         state_bytes = int(c.numel() * wire + ext_pad.numel() * 4)
-        peak = tiles_bytes + state_bytes
+        peak = _tile_bytes(bg, fused_mode) + state_bytes
 
         n_buckets = len(bg.buckets)
         bucket_rows = np.array([b.n_rows for b in bg.buckets], dtype=np.int64)
@@ -504,7 +447,7 @@ def decompose(
                 with span("repro_torch.sweep.launch"):
                     if fused_mode == "compaction":
                         changed_vec, dirty_next = _compaction_sweep(
-                            groups, c, ext_pad, active, cand,
+                            tiles, c, ext_pad, active, cand,
                             frozen_reads=not gauss_seidel, track_dirty=frontier,
                         )
                     else:

@@ -8,8 +8,8 @@
   distributed engine (``use_kernel=True``), from ``csrc/counts.cu``.
 
 Each wrapper launches its kernel for CUDA tensors, by a launch plan
-computed from the shapes (:mod:`repro_torch.kernels.plan` for the fused
-and h-index kernels, ``counts_launch_plan`` for the counts kernel), and
-runs the plain version for CPU tensors. :mod:`repro_torch.kernels.build`
-compiles the sources with ``nvcc`` at first use.
+computed from the shapes, and runs the plain version for CPU tensors; the
+plans and the one launch path all three take are in
+:mod:`repro_torch.kernels.plan`. :mod:`repro_torch.kernels.build` compiles
+the sources with ``nvcc`` at first use.
 """

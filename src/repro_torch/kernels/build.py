@@ -10,11 +10,13 @@ The build happens at first use, into :data:`BUILD_DIR` (ignored by git).
 The library name carries a hash of the sources and flags, so an edited
 kernel is rebuilt and a stale library is never loaded. ``ptxas -v`` output
 (registers, spills, shared memory per kernel) is kept beside each library
-in ``lib<name>-<hash>.log``.
+in ``lib<name>-<hash>.log``. :func:`bind` declares an entry point's C
+signature once a process.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -117,3 +119,15 @@ def load(name: str) -> ctypes.CDLL:
                 build([name])
             lib = _LIBS[name] = ctypes.CDLL(str(path))
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bind(name: str, symbol: str, argtypes: Tuple) -> Callable[..., int]:
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library (loaded,
+    and built first if needed, at the first call), declared to take
+    ``argtypes`` and then the CUDA stream, and to return an ``int`` (the
+    launch's CUDA error)."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn

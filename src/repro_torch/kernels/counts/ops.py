@@ -14,119 +14,31 @@ the payload the distributed engine sums over the slot shards before its
 feasibility argmax. Unlike the h-index kernels, ``cand`` is not clamped
 to the width: a slot shard's counts are only one term of the sum.
 
-:func:`counts_launch_plan` decides how a shard is launched (the width
-class's path, block size, grid, cluster, shared memory and rows per
-block); the C entry point only launches what it is given, so the CPU tests
-reach every rule.
+:func:`~repro_torch.kernels.plan.counts_launch_plan` decides how a shard
+is launched (the width class's path, block size, grid, cluster, shared
+memory and rows per block); the C entry point only launches what it is
+given, so the CPU tests reach every rule.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
-from repro_torch.kernels.plan import (GRID_LIMIT, HIST_SCRATCH, MAX_BINS, SMEM_PER_BLOCK, SMS,
-                                      checked_plan, count_launch, hist_split)
-
-# The kernel's block sizes (counts.cu kStepBlock, kWarpBlock): a step block
-# stages rounds of STEP_BLOCK / 8 or STEP_BLOCK / 16 rows, and enough rounds
-# that each thread writes at least 4 vectors of 4 counts (STEP_MIN_SPAN
-# counts a block; only a cand under 256 can need more than one round), up to
-# STEP_MAX_ROUNDS and while the grid keeps a block for every SM; a warp
-# block takes WARP_ROWS rows.
-COUNTS_PATHS = ("step", "warp", "hist")  # counts.cu's enum CountsPath, in order
-STEP_BLOCK = 256
-STEP_MIN_SPAN = 16 * STEP_BLOCK
-STEP_MAX_ROUNDS = 32
-WARP_ROWS = 8
-
-
-class CountsPlan(NamedTuple):
-    """How one slot shard is launched: ``path`` (one of
-    :data:`COUNTS_PATHS`), ``threads`` per block, ``blocks`` in the grid,
-    ``cluster`` blocks per thread-block cluster (the blocks of one row on
-    the hist path), ``smem_bytes`` of dynamic shared memory, and
-    ``rows_per_block`` (per cluster on the hist path)."""
-
-    path: str
-    threads: int
-    blocks: int
-    cluster: int
-    smem_bytes: int
-    rows_per_block: int
-
-
-def _warp_smem(cand: int) -> int:
-    """Shared memory of a warp block: WARP_ROWS histograms of ``cand`` bins
-    each, padded to whole 16-byte vectors at any alignment of the row."""
-    return WARP_ROWS * ((cand + 6) // 4 * 4) * 4
-
-
-@functools.lru_cache(maxsize=4096)
-def counts_launch_plan(rows: int, w_local: int, cand: int, *,
-                       path: Optional[str] = None,
-                       cluster: Optional[int] = None) -> CountsPlan:
-    """The launch plan of ``csrc/counts.cu`` for a ``[rows, w_local]`` slot
-    shard with candidate window ``cand`` (a pure function of the shapes).
-
-    Paths by width:
-
-    * ``step`` (``w_local <= 16``): a block stages a run of rows (8 or 16
-      lanes rank each row's values) and writes their counts as one flat
-      span with 16-byte stores;
-    * ``warp`` (``w_local <= 1024``, and ``WARP_ROWS`` histograms of
-      ``cand`` bins fit in shared memory): a warp per row with a
-      warp-private histogram;
-    * ``hist`` (otherwise): a block per row with a histogram of
-      ``min(cand, MAX_BINS)`` bins (a larger ``cand`` is done window by
-      window), split over a cluster as :func:`~repro_torch.kernels.plan.
-      hist_split` says.
-
-    ``path`` and ``cluster`` force a path (it must cover the shape) and a
-    hist cluster; the rest follows from them.
-    """
-    rows, w_local, cand = int(rows), int(w_local), int(cand)
-    if cand < 1:
-        raise ValueError(f"counts_launch_plan: cand {cand} must be >= 1")
-    warp_fits = w_local <= 1024 and _warp_smem(cand) <= SMEM_PER_BLOCK
-    if path is None:
-        path = "step" if w_local <= 16 else "warp" if warp_fits else "hist"
-    if cluster is not None and path != "hist":
-        raise ValueError(f"counts_launch_plan: a cluster is only planned on the hist path, "
-                         f"not {path!r}")
-    if path == "step" and w_local <= 16:
-        group = 8 if w_local <= 8 else 16
-        per_round = STEP_BLOCK // group
-        rounds = -(-STEP_MIN_SPAN // (per_round * cand))
-        rounds = max(1, min(rounds, STEP_MAX_ROUNDS, rows // (per_round * SMS)))
-        rpb = per_round * rounds
-        plan = CountsPlan(path, STEP_BLOCK, -(-rows // rpb), 1, rpb * group * 4, rpb)
-    elif path == "warp" and warp_fits:
-        plan = CountsPlan(path, 32 * WARP_ROWS, -(-rows // WARP_ROWS), 1, _warp_smem(cand),
-                          WARP_ROWS)
-    elif path == "hist":
-        try:
-            cluster, threads = hist_split(rows, w_local, cluster)
-        except ValueError as e:
-            raise ValueError(f"counts_launch_plan: {e}") from None
-        plan = CountsPlan(path, threads, rows * cluster, cluster,
-                          (min(cand, MAX_BINS) + HIST_SCRATCH) * 4, 1)
-    else:
-        raise ValueError(f"counts_launch_plan: path {path!r} cannot take width {w_local} "
-                         f"with cand {cand}")
-    if plan.blocks > GRID_LIMIT:
-        raise ValueError(f"counts_launch_plan: {plan.blocks} blocks exceed the grid's "
-                         f"{GRID_LIMIT}")
-    return plan
+from repro_torch.kernels.plan import (CountsPlan, checked_plan, counts_launch_plan, launch,
+                                      placement)
 
 # The plain version materializes at most this many [row, slot, candidate]
 # compares at a time (rows and candidates are chunked), so hub widths stay
 # within memory.
 _PLAIN_CHUNK = 1 << 27
 
-_fn = None
+# kcore_partial_counts' own arguments; the plan and the stream follow.
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, ext, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,           # rows, width, cand
+)
 
 
 def partial_counts_plain(x: torch.Tensor, ext: torch.Tensor, *, cand: int) -> torch.Tensor:
@@ -149,24 +61,6 @@ def partial_counts_plain(x: torch.Tensor, ext: torch.Tensor, *, cand: int) -> to
             out[lo : lo + r_step, c_lo:c_hi] = (
                 xs[:, :, None] >= thr[:, None, :]).sum(dim=1, dtype=torch.int32)
     return out
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from repro_torch.kernels.build import load
-
-        fn = load("counts").kcore_partial_counts
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, ext, out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # rows, width, cand
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # path, threads, blocks
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # cluster, smem_bytes, rows_per_block
-            ctypes.c_void_p,                                   # stream
-        ]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def partial_counts_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int,
@@ -197,30 +91,18 @@ def partial_counts_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int,
         raise TypeError(f"partial_counts_op: x {x.dtype} / ext {ext.dtype} must be int32")
     rows, width = x.shape
     plan = checked_plan("partial_counts_op", plan, counts_launch_plan, rows, width, cand)
-    if x.device.type == "cpu" and ext.device.type == "cpu":
+    where = placement("partial_counts_op", (x, ext), meta=True)
+    if where == "cpu":
         return partial_counts_plain(x, ext, cand=cand)
-    if x.device.type == "meta" and ext.device.type == "meta":
+    out = torch.empty(rows, int(cand), dtype=torch.int32, device=x.device)
+    if where == "meta":
         # The kernel's shape function, for a traced dry-run: a meta tensor
         # has no data. The tally prices what the kernel would do.
-        out = torch.empty(rows, int(cand), dtype=torch.int32, device="meta")
         _record(x, out)
         return out
-    if x.device.type != "cuda" or ext.device != x.device:
-        raise ValueError(f"partial_counts_op: x on {x.device}, ext on {ext.device}; "
-                         f"both must be on one CUDA device, both on the CPU or both "
-                         f"on meta")
-    if not (x.is_contiguous() and ext.is_contiguous()):
-        raise ValueError("partial_counts_op: x and ext must be contiguous")
-    out = torch.empty(rows, int(cand), dtype=torch.int32, device=x.device)
-    if rows == 0:
-        return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel()(x.data_ptr(), ext.data_ptr(), out.data_ptr(), rows, width, int(cand),
-                    COUNTS_PATHS.index(plan.path), plan.threads, plan.blocks, plan.cluster,
-                    plan.smem_bytes, plan.rows_per_block, stream)
-    if err:
-        raise RuntimeError(f"kcore_partial_counts launch failed with CUDA error {err}")
-    count_launch(partial_counts_op)
+    launch(partial_counts_op, "counts", "kcore_partial_counts", _ARGTYPES,
+           (x.data_ptr(), ext.data_ptr(), out.data_ptr(), rows, width, int(cand)),
+           plan, x.device)
     return out
 
 

@@ -1,6 +1,5 @@
-"""Fused sweep kernel (``csrc/fused.cu``), its launch plan and its plain
-PyTorch version."""
-from repro_torch.kernels.fused.ops import (FusedPlan, fused_launch_plan, fused_sweep_op,
-                                           fused_sweep_plain)
+"""Fused sweep kernel (``csrc/fused.cu``) and its plain PyTorch version; its
+launch plan is :func:`repro_torch.kernels.plan.fused_launch_plan`."""
+from repro_torch.kernels.fused.ops import fused_sweep_op, fused_sweep_plain
 
-__all__ = ["FusedPlan", "fused_launch_plan", "fused_sweep_op", "fused_sweep_plain"]
+__all__ = ["fused_sweep_op", "fused_sweep_plain"]

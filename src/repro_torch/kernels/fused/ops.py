@@ -11,10 +11,10 @@ sentinel slot ``n``. Pad neighbours of a changed row would set
 ``dirty[n]``, a slot no reader ever looks at, and on the card every such
 store would hit one address.
 
-:func:`~repro_torch.kernels.plan.fused_launch_plan` (re-exported here)
-decides how a bucket is launched (the width class's path, block size,
-grid, cluster and shared memory); the C entry point only launches what it
-is given, so the CPU tests reach every rule.
+:func:`~repro_torch.kernels.plan.fused_launch_plan` decides how a bucket
+is launched (the width class's path, block size, grid, cluster and shared
+memory); the C entry point only launches what it is given, so the CPU tests
+reach every rule.
 """
 from __future__ import annotations
 
@@ -24,10 +24,17 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.hindex.ops import hindex_plain
-from repro_torch.kernels.plan import (  # noqa: F401  (re-exported)
-    MAX_BINS, PATHS, SMS, FusedPlan, checked_plan, count_launch, fused_launch_plan)
+from repro_torch.kernels.plan import (FusedPlan, checked_plan, fused_launch_plan, launch,
+                                      placement)
 
-_fn = None
+# kcore_fused_sweep's own arguments; the plan and the stream follow.
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_int,                      # c, c_bytes
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ext_pad, ids, neigh
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # est, changed, dirty
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,           # n, rows, width
+    ctypes.c_int, ctypes.c_int,                         # cand, track_dirty
+)
 
 
 def fused_sweep_plain(
@@ -53,27 +60,6 @@ def fused_sweep_plain(
         hit = neigh[row_changed].reshape(-1)
         dirty[hit[hit != sentinel]] = 1
     return est, row_changed.to(torch.int32), dirty
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from repro_torch.kernels.build import load
-
-        fn = load("fused").kcore_fused_sweep
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int,                    # c, c_bytes
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ext_pad, ids, neigh
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # est, changed, dirty
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # n, rows, width
-            ctypes.c_int, ctypes.c_int,                        # cand, track_dirty
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # path, threads, blocks
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # cluster, smem_bytes, group
-            ctypes.c_void_p,                                   # stream
-        ]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def fused_sweep_op(
@@ -127,31 +113,17 @@ def fused_sweep_op(
     rows, width = neigh.shape
     plan = checked_plan("fused_sweep_op", plan, fused_launch_plan, rows, width, cand)
     tensors = [c, ext_pad, ids, neigh] + ([dirty] if dirty is not None else [])
-    if all(t.device.type == "cpu" for t in tensors):
+    if placement("fused_sweep_op", tensors) == "cpu":
         return fused_sweep_plain(c, ext_pad, ids, neigh, cand=cand,
                                  track_dirty=track_dirty, dirty=dirty)
-    if c.device.type != "cuda" or any(t.device != c.device for t in tensors):
-        raise ValueError("fused_sweep_op: all tensors must be on one CUDA "
-                         "device (or all on the CPU)")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_sweep_op: all tensors must be contiguous")
     if dirty is None:
         dirty = torch.zeros(n1, dtype=torch.int8, device=c.device)
     est = torch.empty(rows, dtype=torch.int32, device=c.device)
     changed = torch.empty(rows, dtype=torch.int32, device=c.device)
-    if rows == 0:
-        return est, changed, dirty
-    stream = torch.cuda.current_stream(c.device).cuda_stream
-    err = _kernel()(
-        c.data_ptr(), c.element_size(), ext_pad.data_ptr(), ids.data_ptr(),
-        neigh.data_ptr(), est.data_ptr(), changed.data_ptr(), dirty.data_ptr(),
-        n1 - 1, rows, width, int(cand), int(bool(track_dirty)),
-        PATHS.index(plan.path), plan.threads, plan.blocks, plan.cluster,
-        plan.smem_bytes, plan.group, stream,
-    )
-    if err:
-        raise RuntimeError(f"kcore_fused_sweep launch failed with CUDA error {err}")
-    count_launch(fused_sweep_op)
+    launch(fused_sweep_op, "fused", "kcore_fused_sweep", _ARGTYPES,
+           (c.data_ptr(), c.element_size(), ext_pad.data_ptr(), ids.data_ptr(),
+            neigh.data_ptr(), est.data_ptr(), changed.data_ptr(), dirty.data_ptr(),
+            n1 - 1, rows, width, int(cand), int(bool(track_dirty))), plan, c.device)
     return est, changed, dirty
 
 

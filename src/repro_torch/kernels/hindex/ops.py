@@ -23,15 +23,19 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.plan import (PATHS, FusedPlan, checked_plan, count_launch,
-                                      fused_launch_plan)
+from repro_torch.kernels.plan import (FusedPlan, checked_plan, fused_launch_plan, launch,
+                                      placement)
 
 # The plain version materializes at most this many [row, slot, candidate]
 # compares at a time (rows and candidates are chunked), so hub widths stay
 # within memory.
 _PLAIN_CHUNK = 1 << 27
 
-_fn = None
+# kcore_hindex's own arguments; the plan and the stream follow.
+_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, ext, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,           # rows, width, cand
+)
 
 
 def hindex_plain(x: torch.Tensor, ext: torch.Tensor, *, cand: int) -> torch.Tensor:
@@ -55,24 +59,6 @@ def hindex_plain(x: torch.Tensor, ext: torch.Tensor, *, cand: int) -> torch.Tens
             best = torch.maximum(best, torch.where(cnt >= i, i, 0).amax(dim=1))
         out[lo : lo + r_step] = es + best
     return out
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        from repro_torch.kernels.build import load
-
-        fn = load("hindex").kcore_hindex
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, ext, out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # rows, width, cand
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # path, threads, blocks
-            ctypes.c_int, ctypes.c_int, ctypes.c_int,          # cluster, smem_bytes, group
-            ctypes.c_void_p,                                   # stream
-        ]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def hindex_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int,
@@ -104,23 +90,12 @@ def hindex_op(x: torch.Tensor, ext: torch.Tensor, *, cand: int,
         raise TypeError(f"hindex_op: x {x.dtype} / ext {ext.dtype} must be int32")
     rows, width = x.shape
     plan = checked_plan("hindex_op", plan, fused_launch_plan, rows, width, cand)
-    if x.device.type == "cpu" and ext.device.type == "cpu":
+    if placement("hindex_op", (x, ext)) == "cpu":
         return hindex_plain(x, ext, cand=cand)
-    if x.device.type != "cuda" or ext.device != x.device:
-        raise ValueError(f"hindex_op: x on {x.device}, ext on {ext.device}; "
-                         f"both must be on one CUDA device (or both on the CPU)")
-    if not (x.is_contiguous() and ext.is_contiguous()):
-        raise ValueError("hindex_op: x and ext must be contiguous")
     out = torch.empty(rows, dtype=torch.int32, device=x.device)
-    if rows == 0:
-        return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel()(x.data_ptr(), ext.data_ptr(), out.data_ptr(), rows, width, int(cand),
-                    PATHS.index(plan.path), plan.threads, plan.blocks, plan.cluster,
-                    plan.smem_bytes, plan.group, stream)
-    if err:
-        raise RuntimeError(f"kcore_hindex launch failed with CUDA error {err}")
-    count_launch(hindex_op)
+    launch(hindex_op, "hindex", "kcore_hindex", _ARGTYPES,
+           (x.data_ptr(), ext.data_ptr(), out.data_ptr(), rows, width, int(cand)),
+           plan, x.device)
     return out
 
 

@@ -1,19 +1,27 @@
-"""The H100's launch limits and the row-kernel launch plan.
+"""The H100's launch limits, the kernels' launch plans and their one launch path.
 
 :func:`fused_launch_plan` decides how one bucket of rows is launched on the
 card by the two h-index kernels, ``csrc/fused.cu`` (gather + h-index + dirty
 push) and ``csrc/hindex.cu`` (h-index of rows gathered beforehand): both
 launch the row paths of ``csrc/hist_common.cuh`` and ``csrc/hindex_common.cuh``
-through one launcher, and their C entry points only launch the plan they
-are given, so the CPU tests reach every rule. The partial-counts kernel's
-plan (``kernels/counts/ops.py``) takes its card limits and its cluster rule
-from here.
+through one launcher. :func:`counts_launch_plan` decides how one slot shard is
+launched by the partial-counts kernel, ``csrc/counts.cu``. The C entry points
+only launch the plan they are given, so the CPU tests reach every rule.
+
+Every kernel wrapper (``kernels/*/ops.py``) places its call with
+:func:`placement` and enqueues it with :func:`launch`, which knows the C
+convention the entry points share.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import threading
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.kernels.build import bind
 
 # The card's limits, for the H100 SXM: its SMs; the shared memory one block
 # may take after opting in (227 KB); the histogram bins that fit there
@@ -124,6 +132,97 @@ def fused_launch_plan(rows: int, width: int, cand: int, *,
     return plan
 
 
+# The counts kernel's block sizes (counts.cu kStepBlock, kWarpBlock): a step
+# block stages rounds of STEP_BLOCK / 8 or STEP_BLOCK / 16 rows, and enough
+# rounds that each thread writes at least 4 vectors of 4 counts (STEP_MIN_SPAN
+# counts a block; only a cand under 256 can need more than one round), up to
+# STEP_MAX_ROUNDS and while the grid keeps a block for every SM; a warp block
+# takes WARP_ROWS rows.
+COUNTS_PATHS = ("step", "warp", "hist")  # counts.cu's enum CountsPath, in order
+STEP_BLOCK = 256
+STEP_MIN_SPAN = 16 * STEP_BLOCK
+STEP_MAX_ROUNDS = 32
+WARP_ROWS = 8
+
+
+class CountsPlan(NamedTuple):
+    """How one slot shard is launched: ``path`` (one of
+    :data:`COUNTS_PATHS`), ``threads`` per block, ``blocks`` in the grid,
+    ``cluster`` blocks per thread-block cluster (the blocks of one row on
+    the hist path), ``smem_bytes`` of dynamic shared memory, and
+    ``rows_per_block`` (per cluster on the hist path)."""
+
+    path: str
+    threads: int
+    blocks: int
+    cluster: int
+    smem_bytes: int
+    rows_per_block: int
+
+
+def _warp_smem(cand: int) -> int:
+    """Shared memory of a warp block: WARP_ROWS histograms of ``cand`` bins
+    each, padded to whole 16-byte vectors at any alignment of the row."""
+    return WARP_ROWS * ((cand + 6) // 4 * 4) * 4
+
+
+@functools.lru_cache(maxsize=4096)
+def counts_launch_plan(rows: int, w_local: int, cand: int, *,
+                       path: Optional[str] = None,
+                       cluster: Optional[int] = None) -> CountsPlan:
+    """The launch plan of ``csrc/counts.cu`` for a ``[rows, w_local]`` slot
+    shard with candidate window ``cand`` (a pure function of the shapes).
+
+    Paths by width:
+
+    * ``step`` (``w_local <= 16``): a block stages a run of rows (8 or 16
+      lanes rank each row's values) and writes their counts as one flat
+      span with 16-byte stores;
+    * ``warp`` (``w_local <= 1024``, and ``WARP_ROWS`` histograms of
+      ``cand`` bins fit in shared memory): a warp per row with a
+      warp-private histogram;
+    * ``hist`` (otherwise): a block per row with a histogram of
+      ``min(cand, MAX_BINS)`` bins (a larger ``cand`` is done window by
+      window), split over a cluster as :func:`hist_split` says.
+
+    ``path`` and ``cluster`` force a path (it must cover the shape) and a
+    hist cluster; the rest follows from them.
+    """
+    rows, w_local, cand = int(rows), int(w_local), int(cand)
+    if cand < 1:
+        raise ValueError(f"counts_launch_plan: cand {cand} must be >= 1")
+    warp_fits = w_local <= 1024 and _warp_smem(cand) <= SMEM_PER_BLOCK
+    if path is None:
+        path = "step" if w_local <= 16 else "warp" if warp_fits else "hist"
+    if cluster is not None and path != "hist":
+        raise ValueError(f"counts_launch_plan: a cluster is only planned on the hist path, "
+                         f"not {path!r}")
+    if path == "step" and w_local <= 16:
+        group = 8 if w_local <= 8 else 16
+        per_round = STEP_BLOCK // group
+        rounds = -(-STEP_MIN_SPAN // (per_round * cand))
+        rounds = max(1, min(rounds, STEP_MAX_ROUNDS, rows // (per_round * SMS)))
+        rpb = per_round * rounds
+        plan = CountsPlan(path, STEP_BLOCK, -(-rows // rpb), 1, rpb * group * 4, rpb)
+    elif path == "warp" and warp_fits:
+        plan = CountsPlan(path, 32 * WARP_ROWS, -(-rows // WARP_ROWS), 1, _warp_smem(cand),
+                          WARP_ROWS)
+    elif path == "hist":
+        try:
+            cluster, threads = hist_split(rows, w_local, cluster)
+        except ValueError as e:
+            raise ValueError(f"counts_launch_plan: {e}") from None
+        plan = CountsPlan(path, threads, rows * cluster, cluster,
+                          (min(cand, MAX_BINS) + HIST_SCRATCH) * 4, 1)
+    else:
+        raise ValueError(f"counts_launch_plan: path {path!r} cannot take width {w_local} "
+                         f"with cand {cand}")
+    if plan.blocks > GRID_LIMIT:
+        raise ValueError(f"counts_launch_plan: {plan.blocks} blocks exceed the grid's "
+                         f"{GRID_LIMIT}")
+    return plan
+
+
 def checked_plan(who: str, plan: Optional[NamedTuple], make: Callable[..., NamedTuple],
                  rows: int, width: int, cand: int) -> NamedTuple:
     """``plan``, or ``make(rows, width, cand)`` when it is None. A given
@@ -157,3 +256,48 @@ def count_launch(op) -> None:
     with _COUNT_LOCK:
         op.launches += 1
         op.launches_by_thread[name] = op.launches_by_thread.get(name, 0) + 1
+
+
+def placement(who: str, tensors: Sequence[torch.Tensor], *, meta: bool = False) -> str:
+    """Where a kernel wrapper's call runs, from its tensors: ``"cpu"`` when
+    all are on the CPU (the plain version), ``"meta"`` when all are on meta
+    and the op has a shape function (``meta``), else ``"cuda"``, which needs
+    them all on one CUDA device and contiguous; any other mix raises
+    ``ValueError``. A wrapper never falls back from one to another."""
+    first = tensors[0].device
+    if all(t.device.type == "cpu" for t in tensors):
+        return "cpu"
+    if meta and all(t.device.type == "meta" for t in tensors):
+        return "meta"
+    if first.type != "cuda" or any(t.device != first for t in tensors):
+        where = ", ".join(sorted({str(t.device) for t in tensors}))
+        rest = ", all on the CPU or all on meta" if meta else " (or all on the CPU)"
+        raise ValueError(f"{who}: tensors on {where}; all must be on one CUDA device{rest}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{who}: all tensors must be contiguous")
+    return "cuda"
+
+
+# What every C entry point in csrc/ takes after its own arguments: the plan's
+# path (the index in the kernel's enum), threads, blocks, cluster, shared
+# memory bytes and rows a group or block (the plans' fields in order).
+_PLAN_ARGTYPES = (ctypes.c_int,) * 6
+
+
+def launch(op, lib: str, symbol: str, argtypes: Tuple, args: Tuple, plan: NamedTuple,
+           device: torch.device) -> None:
+    """Enqueue ``symbol`` of ``csrc/<lib>.cu`` on ``device``'s current
+    stream and count the launch on ``op`` (:func:`count_launch`). The entry
+    point takes ``args`` (of ctypes types ``argtypes``), then the plan's
+    fields, then the stream, and returns the launch's CUDA error, which
+    raises ``RuntimeError``. A plan of no blocks (no rows) enqueues
+    nothing."""
+    if plan.blocks == 0:
+        return
+    paths = COUNTS_PATHS if isinstance(plan, CountsPlan) else PATHS
+    fn = bind(lib, symbol, argtypes + _PLAN_ARGTYPES)
+    err = fn(*args, paths.index(plan.path), *plan[1:],
+             torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{symbol} launch failed with CUDA error {err}")
+    count_launch(op)

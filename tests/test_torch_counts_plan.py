@@ -17,10 +17,9 @@ import torch
 
 from repro.kernels.counts import partial_counts_op as ref_counts_op
 from repro.kernels.counts import partial_counts_ref
-from repro_torch.kernels.counts import (CountsPlan, counts_launch_plan, partial_counts_op,
-                                        partial_counts_plain)
-from repro_torch.kernels.counts.ops import COUNTS_PATHS, STEP_BLOCK, WARP_ROWS
-from repro_torch.kernels.plan import HIST_SCRATCH, MAX_BINS, SMS
+from repro_torch.kernels.counts import partial_counts_op, partial_counts_plain
+from repro_torch.kernels.plan import (COUNTS_PATHS, HIST_SCRATCH, MAX_BINS, SMS, STEP_BLOCK,
+                                      WARP_ROWS, CountsPlan, counts_launch_plan)
 
 torch.set_num_threads(1)
 

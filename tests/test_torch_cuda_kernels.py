@@ -16,10 +16,10 @@ from repro_torch.graph.build import bucketize
 from repro_torch.graph.generators import rmat
 from repro_torch.graph.oracle import peel_coreness
 from repro_torch.core.distributed import MeshPlan, decompose_distributed
-from repro_torch.kernels.counts import counts_launch_plan, partial_counts_op, partial_counts_plain
-from repro_torch.kernels.fused import fused_launch_plan, fused_sweep_op, fused_sweep_plain
-from repro_torch.kernels.fused.ops import MAX_BINS
+from repro_torch.kernels.counts import partial_counts_op, partial_counts_plain
+from repro_torch.kernels.fused import fused_sweep_op, fused_sweep_plain
 from repro_torch.kernels.hindex import hindex_op, hindex_plain
+from repro_torch.kernels.plan import MAX_BINS, counts_launch_plan, fused_launch_plan
 
 pytestmark = pytest.mark.cuda
 

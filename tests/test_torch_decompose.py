@@ -138,6 +138,33 @@ def test_fused_dispatch_crossover_default():
     _assert_result_equal(ref, port)
 
 
+def test_fused_compaction_width_classes_out_of_bucket_order():
+    """The compaction dispatch groups tiles by width, not by position: with
+    the buckets dealt round-robin over the width classes (``bucket_adj`` and
+    ``node_bucket`` permuted to match), every class of several tiles is
+    split up, and the run still equals the reference field by field."""
+    bg = _bucketed("rmat9", 16)
+    by_width: dict = {}
+    for bi, b in enumerate(bg.buckets):
+        by_width.setdefault(b.width, []).append(bi)
+    order = sorted(range(len(bg.buckets)), key=lambda bi: (
+        by_width[bg.buckets[bi].width].index(bi), bg.buckets[bi].width))
+    new_of = np.empty(len(order), np.int64)
+    new_of[order] = np.arange(len(order))
+    owner = np.asarray(bg.node_bucket)
+    dealt = dataclasses.replace(
+        bg, buckets=[bg.buckets[bi] for bi in order],
+        bucket_adj=np.asarray(bg.bucket_adj)[np.ix_(order, order)],
+        node_bucket=np.where(owner >= 0, new_of[np.maximum(owner, 0)], -1).astype(owner.dtype))
+    for width in by_width:
+        at = [i for i, b in enumerate(dealt.buckets) if b.width == width]
+        assert len(at) == 1 or at[-1] - at[0] >= len(at), width  # split up
+    ref, port = _both(dealt, op="fused", fused_compaction_min_tiles=1)
+    assert port.fused_mode == "compaction"
+    _assert_result_equal(ref, port)
+    np.testing.assert_array_equal(port.coreness, peel_coreness(_graph("rmat9")))
+
+
 @pytest.mark.parametrize("graph", ["rmat", "star30000"])
 def test_int16_mode(graph):
     # The star's hub row is one tile whatever the split; None keeps its

@@ -18,8 +18,8 @@ import torch
 from repro.kernels.fused.ref import fused_sweep_ref
 from repro_torch.graph.build import bucketize
 from repro_torch.graph.generators import rmat
-from repro_torch.kernels.fused import FusedPlan, fused_launch_plan, fused_sweep_op
-from repro_torch.kernels.fused.ops import MAX_BINS, PATHS, SMS
+from repro_torch.kernels.fused import fused_sweep_op
+from repro_torch.kernels.plan import MAX_BINS, PATHS, SMS, FusedPlan, fused_launch_plan
 
 torch.set_num_threads(1)
 

@@ -16,9 +16,8 @@ import pytest
 import torch
 
 from repro.kernels.hindex import hindex_pallas as ref_hindex_pallas
-from repro_torch.kernels.fused import fused_launch_plan
 from repro_torch.kernels.hindex import hindex_op, hindex_plain
-from repro_torch.kernels.plan import MAX_BINS, MAX_CLUSTER
+from repro_torch.kernels.plan import MAX_BINS, MAX_CLUSTER, fused_launch_plan
 
 torch.set_num_threads(1)
 

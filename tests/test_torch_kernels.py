@@ -24,6 +24,7 @@ from repro.kernels.fused import fused_sweep_pallas as ref_fused_pallas
 from repro.kernels.hindex import hindex_op as ref_hindex_op
 from repro.kernels.hindex import hindex_pallas as ref_hindex_pallas
 from repro_torch.core import hindex as port_hindex
+from repro_torch.kernels.counts import partial_counts_op
 from repro_torch.kernels.fused import fused_sweep_op, fused_sweep_plain
 from repro_torch.kernels.hindex import hindex_op, hindex_plain
 from test_torch_call_setup_cuda import DRAWS, draw
@@ -247,3 +248,37 @@ def test_wrappers_reject_bad_input_and_count_no_cpu_launches():
         fused_sweep_op(c.to(torch.int64), torch.zeros(9, dtype=torch.int32),
                        torch.arange(4, dtype=torch.int32),
                        torch.full((4, 8), 8, dtype=torch.int32), cand=4)
+
+
+# Each wrapper's tensors, small and valid: (op, its tensors).
+_WRAPPERS = {
+    "fused_sweep_op": (fused_sweep_op, lambda: (
+        torch.full((9,), 2, dtype=torch.int32), torch.zeros(9, dtype=torch.int32),
+        torch.arange(4, dtype=torch.int32), torch.full((4, 8), 8, dtype=torch.int32))),
+    "hindex_op": (hindex_op, lambda: (
+        torch.zeros(4, 8, dtype=torch.int32), torch.zeros(4, dtype=torch.int32))),
+    "partial_counts_op": (partial_counts_op, lambda: (
+        torch.zeros(4, 8, dtype=torch.int32), torch.zeros(4, dtype=torch.int32))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_WRAPPERS))
+def test_wrappers_share_one_placement_rule(name):
+    """All three wrappers place a call by ``kernels/plan.py::placement``: on
+    the CPU the plain version runs; a CPU/meta mix raises; all on meta
+    raises for the two h-index kernels and gives the counts kernel's shape.
+    None of it is a launch."""
+    op, make = _WRAPPERS[name]
+    tensors = make()
+    before = op.launches
+    op(*tensors, cand=4)
+    with pytest.raises(ValueError, match="device"):
+        op(tensors[0].to("meta"), *tensors[1:], cand=4)
+    on_meta = [t.to("meta") for t in tensors]
+    if op is partial_counts_op:
+        out = op(*on_meta, cand=4)
+        assert (out.device.type, out.shape, out.dtype) == ("meta", (4, 4), torch.int32)
+    else:
+        with pytest.raises(ValueError, match="device"):
+            op(*on_meta, cand=4)
+    assert op.launches == before
